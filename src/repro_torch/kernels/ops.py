@@ -1,0 +1,43 @@
+"""Kernel entry points used by the engine and the query path.
+
+Each call dispatches on the device of its tensors: CUDA tensors launch the
+hand-written kernel (and raise if it cannot launch), CPU tensors run the
+plain PyTorch version in ``ref``.  There is no fallback from one to the
+other.  ``KERNEL_LAUNCHES`` counts launches per kernel, so a run can show
+that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from ._build import KERNEL_LAUNCHES  # noqa: F401  (re-exported)
+from .bitset_matmul import cuda_bitset_matmul
+from .block_sparse import cuda_block_sparse_matmul
+from .pattern_filter import cuda_way_filter
+from ..compressed import BlockCompressed
+
+
+def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One boolean-semiring expansion round: OR_j (A[i,j] & X[j,:])."""
+    if a_packed.is_cuda:
+        return cuda_bitset_matmul(a_packed, x.contiguous())
+    return ref.bitset_matmul_ref(a_packed, x)
+
+
+def frontier_step_sparse(comp: BlockCompressed,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Block-sparse expansion round over a ``BlockCompressed`` adjacency."""
+    if x.is_cuda:
+        return cuda_block_sparse_matmul(comp, x.contiguous())
+    return ref.block_sparse_matmul_ref(comp, x)
+
+
+def filter_ways(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
+                null_plane) -> torch.Tensor:
+    """Fused per-(job, way) viability predicate -> bool [J, G]."""
+    if h_vtx.is_cuda:
+        return cuda_way_filter(*(t.contiguous() for t in (
+            h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb, null_plane)))
+    return ref.way_filter_ref(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
+                              null_plane)
