@@ -23,8 +23,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 3. Cross-checks: the same graph built and answered with
    ``backend="segment"`` (plain torch, no kernels) gives identical planes,
    fixpoint rounds and answers; 32 answers (at least 16 from phase 2)
-   equal the DFS oracle; every kernel launched on the main path; the
-   dense-cap fallback never fired (its warning is an error here).
+   equal the DFS oracle; every kernel launched on the main path.  The
+   engine runs with its default dense cap (the card's free memory); on a
+   card an operand over the cap raises, and the CPU's dense-cap warning is
+   an error here, so no part of the path can leave the kernels unseen.
 4. Where the time goes: the host pieces of build and query timed alone,
    and ``build_index`` and ``answer_batch`` run again under
    ``torch.profiler`` for the device-busy share and the top kernels.
@@ -50,7 +52,6 @@ AVG_DEGREE = 4.0
 N_LABELS = 16
 N_PER_FAMILY = 128
 EXACT_CHUNK = 32
-MAX_DENSE_BYTES = 8 << 30
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet non-tensor 32-bit rate
 KERNEL_REPS = 20
@@ -158,8 +159,6 @@ def main() -> int:
 
     g = graph.erdos_renyi(N_VERTICES, AVG_DEGREE, N_LABELS, seed=0)
     cfg = tdr_build.TDRConfig()
-    ecfg = engine.EngineConfig(max_dense_bytes=MAX_DENSE_BYTES,
-                               bit_chunk=cfg.bit_chunk)
     queries = make_queries(pattern, g.n_vertices, g.n_labels)
     print(f"graph: V={g.n_vertices} E={g.n_edges} L={g.n_labels}; "
           f"{len(queries)} queries")
@@ -168,15 +167,14 @@ def main() -> int:
     torch.cuda.synchronize()
     ops.KERNEL_LAUNCHES.clear()
     t0 = time.perf_counter()
-    idx = tdr_build.build_index(g, cfg, engine_config=ecfg)
+    idx = tdr_build.build_index(g, cfg)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     mem_after_build = torch.cuda.memory_allocated()
     stats = tdr_query.QueryStats()
     t0 = time.perf_counter()
     answers = tdr_query.answer_batch(idx, queries, exact_mode="auto",
-                                     exact_chunk=EXACT_CHUNK, stats=stats,
-                                     engine_config=ecfg)
+                                     exact_chunk=EXACT_CHUNK, stats=stats)
     torch.cuda.synchronize()
     answer_s = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
@@ -233,11 +231,13 @@ def main() -> int:
     xs = {8: idx.vtx_packed, 2: idx.d_lab[:, 0].contiguous(),
           32: torch.cat([idx.r_vtx, idx.n_in, idx.n_out, idx.base_r],
                         dim=1).contiguous()}
+    # library yardstick of B1 and B3 (timed only): one bf16 matmul of the
+    # unpacked operands
+    a_unp = bitset.unpack_bits(adj, kw * 32).to(torch.bfloat16)
     for w, x in xs.items():
         x = ref.pad_k(x, kw * 32).contiguous()
         got = ops.frontier_step(adj, x)
         want = ref.bitset_matmul_ref(adj, x)
-        a_unp = bitset.unpack_bits(adj, kw * 32).to(torch.bfloat16)
         x_unp = bitset.unpack_bits(x, w * 32).to(torch.bfloat16)
         ok &= record(
             f"bitset_matmul[W={w}]",
@@ -247,7 +247,7 @@ def main() -> int:
             lambda: ref.bitset_matmul_ref(adj, x),
             (m * kw + x.numel() + m * w) * 4, m * kw + 2 * a_bits * w,
             lambda: torch.matmul(a_unp, x_unp))
-        del a_unp, x_unp
+        del x_unp
 
     plan = tdr_query.compile_queries(idx, queries)
     plan_p = plan.pad_to(graph.pad_bucket(plan.n_jobs, lo=16))
@@ -275,6 +275,8 @@ def main() -> int:
     live_k = int((xany != 0).sum())
     w = x.shape[1]
     bk = comp.bw * 32
+    x_unp = bitset.unpack_bits(ref.pad_k(x, kw * 32), w * 32).to(
+        torch.bfloat16)
     bs_bytes = (comp.states.numel() + n_live * 4
                 + n_mixed_live * comp.br * comp.bw * 4
                 + comp.grid[1] * (1 + w) * 4 + live_k * bk * w * 4
@@ -286,7 +288,9 @@ def main() -> int:
         ref.block_sparse_matmul_ref(comp, x),
         lambda: ops.frontier_step_sparse(comp, x),
         lambda: ref.block_sparse_matmul_ref(comp, x),
-        bs_bytes, comp.states.numel() + 2 * g.n_edges * w)
+        bs_bytes, comp.states.numel() + 2 * g.n_edges * w,
+        lambda: torch.matmul(a_unp, x_unp))
+    del a_unp, x_unp
     if not ok:
         return fail("a kernel disagrees with its plain version")
 
@@ -341,7 +345,8 @@ def main() -> int:
     t_pack = time.perf_counter() - t0
     t0 = time.perf_counter()
     from repro_torch import compressed
-    compressed.compress_blocks(engine.pack_adjacency_np(g), nbits=N_VERTICES)
+    compressed.compress_blocks(engine.pack_adjacency_np(g), nbits=N_VERTICES,
+                               device="cpu")
     t_comp = time.perf_counter() - t0 - t_pack
     special = tdr_query.ExactExecutor(idx, eng).special_labels(
         plan_p, np.flatnonzero(plan_p.qid >= 0))
@@ -353,11 +358,10 @@ def main() -> int:
           f"{t_pack:.3f} s, compress_blocks {t_comp:.3f} s, one "
           f"label-class stack ({len(special) + 1} classes) {t_cls:.3f} s")
     for what, fn in (
-            ("build_index", lambda: tdr_build.build_index(
-                g, cfg, engine_config=ecfg)),
+            ("build_index", lambda: tdr_build.build_index(g, cfg)),
             ("answer_batch", lambda: (eng._label_adj.clear(),
                                       tdr_query.answer_batch(
-                idx, queries, exact_chunk=EXACT_CHUNK, engine_config=ecfg)))):
+                idx, queries, exact_chunk=EXACT_CHUNK)))):
         wall, busy, top = profile(torch, fn)
         print(f"profile {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall):.1f}% idle); top device time: "

@@ -19,6 +19,15 @@ def n_words(nbits: int) -> int:
     return (nbits + WORD - 1) // WORD
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
 def np_to_words(a: np.ndarray, device) -> torch.Tensor:
     """uint32 numpy words -> int32 tensor on ``device`` (same bits)."""
     a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))

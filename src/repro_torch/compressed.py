@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bitset import resolve_device
 from .graph import pad_bucket
 
 WORD = 32
@@ -119,13 +120,15 @@ class BlockCompressed:
 
 def compress_blocks(a_packed: np.ndarray, *, br: int = 8, bw: int = 1,
                     nbits: int | None = None,
-                    device="cpu") -> BlockCompressed:
-    """Build the block-state operand from a dense packed bit-matrix.
+                    device="cuda") -> BlockCompressed:
+    """Build the block-state operand from a dense packed bit-matrix, on
+    ``device`` (the card by default; pass ``device="cpu"`` without one).
 
     Blocks straddling the row or valid-column tail never classify
     ``ALL_ONE`` (the padding is zero and the tail mask partial), so the
     ONE short-circuit stays exact without per-block tail handling.
     """
+    device = resolve_device(device)
     a = np.asarray(a_packed, dtype=np.uint32)
     m, kw = a.shape
     nbits = kw * WORD if nbits is None else int(nbits)

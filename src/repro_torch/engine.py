@@ -13,7 +13,8 @@ over packed int32 words (32 graph bits per word), behind two backends:
 * ``matmul`` — the packed adjacency bit-matrix (``[V, ceil(V/32)]``, bit j
   of row i == edge i→j) through ``kernels.ops``: the hand-written CUDA
   kernels on a card, their plain versions on the CPU.  Dense ``V×V/8``
-  bytes, so an engine over ``EngineConfig.max_dense_bytes`` falls back to
+  bytes, held to a cap (``Engine.dense_cap``): on a card an operand over
+  it raises ``DenseCapError``; on the CPU the work falls back to
   ``segment`` with a ``DenseCapWarning``.
 
 ``"auto"`` resolves to ``matmul`` on CUDA and ``segment`` on the CPU.  Both
@@ -31,25 +32,23 @@ import numpy as np
 import torch
 
 from . import bitset
+from .bitset import resolve_device  # noqa: F401  (re-exported)
 from .compressed import BlockCompressed, compress_blocks
 from .graph import Graph, csr_row_edges
 from .kernels import ops
 
 BACKENDS = ("segment", "matmul")
+CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
 
 
 class DenseCapWarning(UserWarning):
-    """A dense operand would exceed ``max_dense_bytes``; the work runs on
-    the segment path instead."""
+    """On the CPU, a dense operand would exceed the dense cap; the work
+    runs on the segment path instead."""
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises for CUDA without a card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
+class DenseCapError(RuntimeError):
+    """On a card, a dense matmul operand does not fit: the card path
+    launches its kernels or raises, it never falls back."""
 
 
 def resolve_backend(requested: str | None, device: torch.device) -> str:
@@ -67,7 +66,7 @@ def resolve_backend(requested: str | None, device: torch.device) -> str:
 class EngineConfig:
     backend: str = "auto"        # "auto" | "segment" | "matmul"
     bit_chunk: int = 64          # transient chunk width (bits) for segment ORs
-    max_dense_bytes: int = 1 << 28  # matmul dense-operand cap (auto-fallback)
+    max_dense_bytes: int | None = None  # dense-operand cap (Engine.dense_cap)
     sparse: bool = True          # block-sparse / frontier closure fixpoints
     block_rows: int = 8          # row-block height of the block-sparse operand
     block_words: int = 1         # word-block width  (8x1 = 8x32-bit blocks)
@@ -162,29 +161,57 @@ class Engine:
     LABEL_ADJ_CACHE = 4
 
     def __init__(self, graph: Graph, config: EngineConfig = EngineConfig(),
-                 device="cpu"):
+                 device="cuda"):
         self.device = resolve_device(device)
-        backend = resolve_backend(config.backend, self.device)
-        kw = bitset.n_words(graph.n_vertices)
-        dense_bytes = graph.n_vertices * kw * 4
-        if backend == "matmul" and dense_bytes > config.max_dense_bytes:
-            warnings.warn(
-                f"engine: dense adjacency needs {dense_bytes/1e6:.0f} MB "
-                f"(> max_dense_bytes={config.max_dense_bytes/1e6:.0f} MB); "
-                "falling back to the segment backend", DenseCapWarning,
-                stacklevel=2)
-            backend = "segment"
         self.graph = graph
         self.config = config
+        self._adj: dict[bool, torch.Tensor] = {}
+        self._bcomp: dict[bool, BlockCompressed] = {}
+        self._label_adj: dict[tuple, torch.Tensor] = {}
+        self._rev_graph: Graph | None = None
+        backend = resolve_backend(config.backend, self.device)
+        if backend == "matmul" and not self.dense_fits(
+                graph.n_vertices * bitset.n_words(graph.n_vertices) * 4,
+                "the dense adjacency"):
+            backend = "segment"
         self.backend = backend
         self.edge_src = torch.from_numpy(graph.src.astype(np.int64)).to(
             self.device)
         self.edge_dst = torch.from_numpy(graph.indices.astype(np.int64)).to(
             self.device)
-        self._adj: dict[bool, torch.Tensor] = {}
-        self._bcomp: dict[bool, BlockCompressed] = {}
-        self._label_adj: dict[tuple, torch.Tensor] = {}
-        self._rev_graph: Graph | None = None
+
+    # ---------------------------------------------------------- dense cap
+    def dense_cap(self) -> int:
+        """Bytes a new dense matmul operand may take: ``max_dense_bytes``
+        when set; else, on a card, what it can still allocate (free device
+        memory plus what torch's allocator holds unused); on the CPU the
+        JAX package's 256 MiB."""
+        if self.config.max_dense_bytes is not None:
+            return self.config.max_dense_bytes
+        if self.device.type != "cuda":
+            return CPU_DENSE_BYTES
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return (free + torch.cuda.memory_reserved(self.device)
+                - torch.cuda.memory_allocated(self.device))
+
+    def dense_fits(self, nbytes: int, what: str) -> bool:
+        """Whether a dense operand of ``nbytes`` may be built.  Over the
+        cap, on a card: drop the resident label-class stacks (a cache) and
+        raise ``DenseCapError`` if that does not make room; on the CPU:
+        warn and return False, and the caller takes the segment path."""
+        if nbytes <= self.dense_cap():
+            return True
+        msg = (f"engine: {what} needs {nbytes / 1e6:.0f} MB, over the dense "
+               f"cap of {self.dense_cap() / 1e6:.0f} MB")
+        if self.device.type == "cuda":
+            self._label_adj.clear()
+            if nbytes <= self.dense_cap():
+                return True
+            raise DenseCapError(msg + "; pass backend='segment' to run "
+                                "without the matmul kernels")
+        warnings.warn(msg + "; running it on the segment path",
+                      DenseCapWarning, stacklevel=3)
+        return False
 
     # ------------------------------------------------------------ operands
     def adjacency(self, *, reverse: bool = False) -> torch.Tensor:
@@ -324,7 +351,7 @@ class Engine:
 
 def make_engine(graph: Graph, backend: str | None = None,
                 config: EngineConfig | None = None,
-                device="cpu") -> Engine:
+                device="cuda") -> Engine:
     """Engine factory: ``backend`` shorthand overrides ``config.backend``."""
     cfg = config or EngineConfig()
     if backend is not None:

@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-import warnings
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -623,18 +622,10 @@ class ExactExecutor:
                                    idx.vtx_packed)
         max_rounds = v_p * n_states + 1
 
-        use_matmul = eng.backend == "matmul"
-        if use_matmul:
-            n_mats = 2 * (len(special) + 1)
-            if n_mats * v_p * bitset.n_words(v_p) * 4 > \
-                    eng.config.max_dense_bytes:
-                warnings.warn(
-                    f"engine: {n_mats} label-class adjacency matrices "
-                    "exceed max_dense_bytes; expanding this chunk via the "
-                    "segment path", engine_mod.DenseCapWarning, stacklevel=3)
-                use_matmul = False
-
-        if use_matmul:
+        n_mats = 2 * (len(special) + 1)
+        if eng.backend == "matmul" and eng.dense_fits(
+                n_mats * v_p * bitset.n_words(v_p) * 4,
+                f"this chunk's {n_mats} label-class adjacency matrices"):
             class_label = _to_long(np.asarray(special + (-1,)), dev)
             if compacted:
                 adj_rev, adj_fwd = (

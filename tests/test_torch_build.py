@@ -67,7 +67,7 @@ def test_closure_rounds_match_reference_per_path(kind, n, seed, reverse):
                                       sparse=False)
     for backend in ("segment", "matmul"):
         for sparse in (True, False):
-            eng = engine.make_engine(g, backend=backend)
+            eng = engine.make_engine(g, backend=backend, device="cpu")
             got, rounds = eng.closure(bitset.np_to_words(base, "cpu"),
                                       reverse=reverse, sparse=sparse)
             np.testing.assert_array_equal(bitset.words_to_np(got),
@@ -86,7 +86,7 @@ def test_generators_and_operands_match_reference(kind, n, seed):
         a = engine.pack_adjacency_np(g, reverse=reverse)
         np.testing.assert_array_equal(
             a, reng.pack_adjacency_np(rg, reverse=reverse))
-        comp = compressed.compress_blocks(a, nbits=n)
+        comp = compressed.compress_blocks(a, nbits=n, device="cpu")
         rc = rcomp.compress_blocks(a, nbits=n)
         np.testing.assert_array_equal(comp.states.numpy(),
                                       np.asarray(rc.states))

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import (bitset, compressed, dfs_baseline, graph as G,
-                         pattern, tdr_build, tdr_query)
+from repro_torch import (bitset, compressed, dfs_baseline, engine,
+                         graph as G, pattern, tdr_build, tdr_query)
 from repro_torch.kernels import ops, ref
 
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
@@ -78,7 +78,8 @@ def test_block_sparse_kernel_matches_plain(cuda, m, kw, w, br, bw, nbits):
     x = _words(rng, nbits, w)
     x[:40] = 0                         # a dead leading k-block
     x_h, x_d = _both(x, cuda)
-    comp_h = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits)
+    comp_h = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device="cpu")
     comp_d = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
                                         device=cuda)
     got = ops.frontier_step_sparse(comp_d, x_d)
@@ -118,3 +119,20 @@ def test_main_path_on_card_matches_segment_and_oracle(cuda, kind):
         assert got.tolist() == want, mode
     for name in ("bitset_matmul", "way_filter", "block_sparse_matmul"):
         assert ops.KERNEL_LAUNCHES[name] > 0, name
+
+
+@pytest.mark.gpu
+def test_dense_cap_on_the_card_raises(cuda):
+    """On the card an operand over the dense cap raises: the matmul path
+    never falls back to plain torch there."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=1)
+    adj_bytes = 300 * bitset.n_words(300) * 4
+    with pytest.raises(engine.DenseCapError):
+        engine.Engine(g, engine.EngineConfig(max_dense_bytes=adj_bytes - 1))
+    ecfg = engine.EngineConfig(max_dense_bytes=adj_bytes)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64),
+                                engine_config=ecfg)
+    assert idx.engine(config=ecfg).backend == "matmul"
+    qs = [(u, (u * 7 + 3) % 300, pattern.all_of([0, 1])) for u in range(64)]
+    with pytest.raises(engine.DenseCapError):
+        tdr_query.answer_batch(idx, qs, engine_config=ecfg)

@@ -9,7 +9,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch import graph as G, pattern, tdr_build, tdr_query
+from repro_torch import (compressed, engine, graph as G, pattern, tdr_build,
+                         tdr_query)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
@@ -58,3 +59,17 @@ def test_entry_points_refuse_the_cpu_by_default():
                                 device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdr_query.answer_batch(idx, [(0, 1, pattern.all_of([0]))])
+
+
+@pytest.mark.parametrize("ctor", ["Engine", "make_engine", "compress_blocks"])
+def test_engine_constructors_refuse_the_cpu_by_default(ctor):
+    """The engine and its block operand default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    build = {"Engine": lambda: engine.Engine(g),
+             "make_engine": lambda: engine.make_engine(g),
+             "compress_blocks": lambda: compressed.compress_blocks(
+                 engine.pack_adjacency_np(g))}[ctor]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()

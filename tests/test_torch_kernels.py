@@ -136,7 +136,8 @@ def test_way_filter_plain_matches_reference(j, g, k, wv, wl):
 @pytest.mark.parametrize("m,kw,w,br,bw,nbits", B3_SHAPES)
 def test_block_sparse_plain_matches_reference(m, kw, w, br, bw, nbits):
     a, x = _b3_inputs(m, kw, w, nbits, seed=m + kw)
-    comp = compressed.compress_blocks(a, br=br, bw=bw, nbits=nbits)
+    comp = compressed.compress_blocks(a, br=br, bw=bw, nbits=nbits,
+                                      device="cpu")
     rc = rcomp.compress_blocks(a, br=br, bw=bw, nbits=nbits)
     np.testing.assert_array_equal(comp.states.numpy(), np.asarray(rc.states))
     np.testing.assert_array_equal(comp.slots.numpy(), np.asarray(rc.slots))

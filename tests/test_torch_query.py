@@ -9,8 +9,8 @@ import pytest
 
 from repro.core import (dfs_baseline as RD, graph as RG, lcr as RL,
                         pattern as RP, tdr_build as RB, tdr_query as RQ)
-from repro_torch import (convert, dfs_baseline, graph as G, lcr, pattern,
-                         tdr_build, tdr_query)
+from repro_torch import (bitset, convert, dfs_baseline, engine, graph as G,
+                         lcr, pattern, tdr_build, tdr_query)
 
 CFG = dict(vtx_bits=64, g_max=4, k=3)
 BACKENDS = ("segment", "matmul")
@@ -146,6 +146,30 @@ def test_answer_lcr_batch_matches_reference(seed):
     for backend in BACKENDS:
         got = lcr.answer_lcr_batch(idx, qs, backend=backend, device="cpu")
         assert got.tolist() == want, backend
+
+
+@pytest.mark.parametrize("over", ["adjacency", "label_classes"])
+def test_dense_cap_on_the_cpu_warns_and_keeps_answers(over):
+    """On the CPU a dense operand over ``max_dense_bytes`` warns and its
+    work runs on the segment path with the same answers: the whole engine
+    when the adjacency is over the cap, a chunk when only its label-class
+    stack is."""
+    rg, ridx, g, _, specs, want = _case("er", 45, 2.3, 1, 20)
+    adj_bytes = g.n_vertices * bitset.n_words(g.n_vertices) * 4
+    ecfg = engine.EngineConfig(
+        backend="matmul",
+        max_dense_bytes=adj_bytes - (over == "adjacency"))
+    st = tdr_query.QueryStats()
+    with pytest.warns(engine.DenseCapWarning):
+        idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),
+                                    engine_config=ecfg, device="cpu")
+        got = tdr_query.answer_batch(idx, _patterns(pattern, specs, 4),
+                                     engine_config=ecfg, stats=st,
+                                     device="cpu")
+    assert got.tolist() == want
+    assert st.exact_jobs > 0
+    assert idx.engine(config=ecfg).backend == (
+        "segment" if over == "adjacency" else "matmul")
 
 
 def _ref_state(ridx) -> dict:
