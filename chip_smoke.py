@@ -27,9 +27,25 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    engine runs with its default dense cap (the card's free memory); on a
    card an operand over the cap raises, and the CPU's dense-cap warning is
    an error here, so no part of the path can leave the kernels unseen.
-4. Where the time goes: the host pieces of build and query timed alone,
-   and ``build_index`` and ``answer_batch`` run again under
-   ``torch.profiler`` for the device-busy share and the top kernels.
+4. Semiring kinds on the same index: ``dist_batch`` over 128 queries
+   (32 each of all_of / any_of / none_of / lcr over 2 random labels,
+   ``default_rng(1)``) with the default backend, launch counts set to 0
+   just before and read just after (``lane_matmul`` must have run), then
+   with ``backend="segment"``: equal answers and rounds; 16 answers equal
+   the BFS oracle; 4 ``witness`` paths replay through ``verify_witness``
+   at the ``dist`` length; 4 ``count_routes`` at ``hops=6`` equal the
+   walk-count oracle.  Then ``ops.popcount`` and
+   ``ops.block_sparse_lane_matmul``, the entry points of the two kernels
+   no query path calls yet, with their own launch counts.
+5. ``lane_matmul``, ``popcount_rows`` and ``block_sparse_lane_matmul``
+   against their plain versions (tolerance 0): B4 on the class matrix and
+   DIST16 plane of one ``dist_batch`` call (``min``), and at 4096 x 4096
+   for ``sum``/uint32 and ``or``/uint8; B5 on ``h_vtx`` as [rows, words];
+   B6 on the forward block adjacency with the same DIST16 plane, also
+   against B4 on the decompressed matrix.
+6. Where the time goes: the host pieces of build and query timed alone,
+   and ``build_index``, ``answer_batch`` and ``dist_batch`` run again
+   under ``torch.profiler`` for the device-busy share and the top kernels.
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -51,6 +67,12 @@ N_VERTICES = 32768
 AVG_DEGREE = 4.0
 N_LABELS = 16
 N_PER_FAMILY = 128
+N_DIST_PER_FAMILY = 32
+N_DIST_ORACLE = 16
+N_WITNESS = 4
+N_COUNT = 4
+COUNT_HOPS = 6
+SPY_CALL = 200                 # the lane_matmul call whose operands B4/B6 use
 EXACT_CHUNK = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet non-tensor 32-bit rate
@@ -65,15 +87,16 @@ def fail(msg: str) -> int:
     return 1
 
 
-def make_queries(pat, n_vertices: int, n_labels: int, seed: int = 0):
-    """128 each of all_of / any_of / none_of / lcr over 2 random labels,
-    uniform random endpoints."""
+def make_queries(pat, n_vertices: int, n_labels: int, seed: int = 0,
+                 per_family: int = N_PER_FAMILY):
+    """``per_family`` each of all_of / any_of / none_of / lcr over 2
+    random labels, uniform random endpoints."""
     rng = np.random.default_rng(seed)
     fams = (pat.all_of, pat.any_of, pat.none_of,
             lambda labs: pat.lcr(labs, n_labels))
     queries = []
     for fam in fams:
-        for _ in range(N_PER_FAMILY):
+        for _ in range(per_family):
             u, v = (int(x) for x in rng.integers(0, n_vertices, size=2))
             labs = sorted(int(x) for x in rng.choice(n_labels, size=2,
                                                      replace=False))
@@ -128,9 +151,13 @@ def profile(torch, fn):
 
 
 def words_err(torch, got, want) -> int:
-    """Largest |got - want| over the unsigned 32-bit words (0 = bit-equal)."""
-    g = got.to(torch.int64) & 0xFFFFFFFF
-    w = want.to(torch.int64) & 0xFFFFFFFF
+    """Largest |got - want| over the unsigned values (0 = bit-equal):
+    32-bit words, or the stored 8/16-bit lanes of the semiring kernels."""
+    mask = (1 << (8 * got.element_size())) - 1
+    g = got.to(torch.int64) & mask
+    w = want.to(torch.int64) & mask
+    if g.shape != w.shape:
+        return mask
     return int((g - w).abs().max()) if g.numel() else 0
 
 
@@ -202,8 +229,8 @@ def main() -> int:
     rows = []
 
     def record(name, source, replaces, got, want, k_fn, p_fn, nbytes, nops,
-               lib_fn=None):
-        err = words_err(torch, got, want)
+               lib_fn=None, n_launches=None, err=None):
+        err = words_err(torch, got, want) if err is None else err
         ms = time_ms(torch, k_fn, KERNEL_REPS)
         call_ms = time_ms(torch, k_fn, KERNEL_REPS, queued=False)
         plain = time_ms(torch, p_fn, PLAIN_REPS)
@@ -212,8 +239,9 @@ def main() -> int:
         b_ops = nops / INT32_OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(
-                name.split("[")[0], 0),
+            "replaces": replaces,
+            "launches": n_launches if n_launches is not None
+            else launches.get(name.split("[")[0], 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -336,7 +364,195 @@ def main() -> int:
     print(f"oracle: {len(pick)} answers ({len(exact[:24])} from phase 2) "
           f"equal the DFS oracle ({time.perf_counter() - t0:.1f} s)")
 
-    # ---- 4. where the time goes (a second, profiled run) -----------------
+    # ---- 4. semiring kinds on the same index -----------------------------
+    from repro_torch import semiring
+    dq = make_queries(pattern, g.n_vertices, g.n_labels, seed=1,
+                      per_family=N_DIST_PER_FAMILY)
+    spied = {"n": 0}
+    lanes_fn = ops.frontier_step_lanes
+
+    def spy(a, x, **kw):   # observes one call's operands; computes nothing
+        spied["n"] += 1
+        if spied["n"] == SPY_CALL or "a" not in spied:
+            spied["a"], spied["x"] = a, x
+        return lanes_fn(a, x, **kw)
+
+    torch.cuda.synchronize()
+    ops.frontier_step_lanes = spy
+    ops.KERNEL_LAUNCHES.clear()
+    dstats = tdr_query.QueryStats()
+    t0 = time.perf_counter()
+    dists = tdr_query.dist_batch(idx, dq, exact_chunk=EXACT_CHUNK,
+                                 stats=dstats)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    dist_launches = dict(ops.KERNEL_LAUNCHES)
+    ops.frontier_step_lanes = lanes_fn
+    print(f"dist_batch[{eng.backend}]: {dist_s:.3f} s, "
+          f"{len(dq) / dist_s:.1f} queries/s; {dstats.n_jobs} jobs, "
+          f"rounds={dstats.exact_rounds}, corridor occupancy "
+          f"{dstats.corridor_occupancy:.3f}; {int((dists >= 0).sum())} "
+          f"reachable; launches {dist_launches}")
+    if dists.shape != (len(dq),) or dists.dtype != np.int64:
+        return fail(f"distances have shape {dists.shape} {dists.dtype}")
+    if dist_launches.get("lane_matmul", 0) <= 0:
+        return fail("lane_matmul was not launched by dist_batch")
+    dstats_s = tdr_query.QueryStats()
+    t0 = time.perf_counter()
+    dists_s = tdr_query.dist_batch(idx, dq, exact_chunk=EXACT_CHUNK,
+                                   stats=dstats_s, backend="segment")
+    torch.cuda.synchronize()
+    dist_seg_s = time.perf_counter() - t0
+    print(f"dist_batch[segment]: {dist_seg_s:.3f} s, "
+          f"{len(dq) / dist_seg_s:.1f} queries/s, "
+          f"rounds={dstats_s.exact_rounds}")
+    if not np.array_equal(dists, dists_s):
+        return fail("distances differ between matmul and segment")
+    if dstats.exact_rounds != dstats_s.exact_rounds:
+        return fail("dist rounds differ between matmul and segment")
+    t0 = time.perf_counter()
+    for qi in range(N_DIST_ORACLE):
+        uq, vq, p = dq[qi * len(dq) // N_DIST_ORACLE]
+        if dfs_baseline.shortest_pcr(g, uq, vq, p) != int(
+                dists[qi * len(dq) // N_DIST_ORACLE]):
+            return fail(f"dist query {qi} differs from the BFS oracle")
+    print(f"oracle: {N_DIST_ORACLE} distances equal the BFS oracle "
+          f"({time.perf_counter() - t0:.1f} s)")
+    reach = [i for i in np.argsort(-dists, kind="stable") if dists[i] > 0]
+    t0 = time.perf_counter()
+    for qi in reach[:N_WITNESS]:
+        uq, vq, p = dq[qi]
+        path = tdr_query.witness(idx, uq, vq, p)
+        if path is None or len(path) != int(dists[qi]) or not \
+                dfs_baseline.verify_witness(g, uq, vq, p, path):
+            return fail(f"witness of dist query {qi} does not replay at "
+                        f"length {int(dists[qi])}")
+    witness_s = time.perf_counter() - t0
+    # single-term queries, those reachable within the hop bound first
+    single = sorted(
+        (i for i in range(len(dq)) if len(pattern.to_dnf(dq[i][2])) == 1),
+        key=lambda i: (not 0 < dists[i] <= COUNT_HOPS, -int(dists[i])))
+    single = [dq[i] for i in single[:N_COUNT]]
+    t0 = time.perf_counter()
+    counts = [tdr_query.count_routes(idx, uq, vq, p, hops=COUNT_HOPS)
+              for uq, vq, p in single]
+    count_s = time.perf_counter() - t0
+    want_counts = [dfs_baseline.count_routes(
+        g, uq, vq, p, hops=COUNT_HOPS, cap=semiring.COUNT_CAP)
+        for uq, vq, p in single]
+    if counts != want_counts:
+        return fail(f"route counts {counts} differ from the oracle "
+                    f"{want_counts}")
+    print(f"witness: {N_WITNESS} paths of lengths "
+          f"{[int(dists[i]) for i in reach[:N_WITNESS]]} replay "
+          f"({witness_s:.3f} s); count_routes[hops={COUNT_HOPS}]: "
+          f"{counts} equal the oracle ({count_s:.3f} s)")
+
+    # the entry points of the two kernels that no query path calls yet
+    h_rows = idx.h_vtx.reshape(-1, idx.h_vtx.shape[-1])
+    x_dist = spied["x"]
+    torch.cuda.synchronize()
+    ops.KERNEL_LAUNCHES.clear()
+    ops.popcount(h_rows)
+    ops.block_sparse_lane_matmul(comp, x_dist, op="min")
+    torch.cuda.synchronize()
+    aux_launches = dict(ops.KERNEL_LAUNCHES)
+    print(f"kernel entry points: launches {aux_launches}")
+    for name in ("popcount_rows", "block_sparse_lane_matmul"):
+        if aux_launches.get(name, 0) <= 0:
+            return fail(f"{name} was not launched by its entry point")
+
+    # ---- 5. the semiring kernels against their plain versions ------------
+    a_dist = spied["a"]
+    lanes_b = x_dist.element_size()
+    a_rows, a_cols = ref.set_bits(a_dist)
+    w_d = x_dist.shape[1]
+    print(f"B4 operand (lane_matmul call {min(SPY_CALL, spied['n'])} of "
+          f"{spied['n']}): A {tuple(a_dist.shape)} with {a_rows.numel()} "
+          f"set bits, X {tuple(x_dist.shape)} {x_dist.dtype} with "
+          f"{int((semiring.widen(x_dist) < semiring.DIST16.inf).sum())} "
+          f"finite lanes")
+    ok &= record(
+        "lane_matmul[min,u16]", "src/repro_torch/kernels/csrc/lane_matmul.cu",
+        "src/repro/kernels/bitset_matmul.py:143",
+        ops.frontier_step_lanes(a_dist, x_dist, op="min"),
+        ref.lane_matmul_ref(a_dist, x_dist, op="min"),
+        lambda: ops.frontier_step_lanes(a_dist, x_dist, op="min"),
+        lambda: ref.lane_matmul_ref(a_dist, x_dist, op="min"),
+        a_dist.numel() * 4 + (int(a_cols.unique().numel())
+                              + a_dist.shape[0]) * w_d * lanes_b,
+        a_dist.numel() + a_rows.numel() * w_d,
+        n_launches=dist_launches.get("lane_matmul", 0))
+    rng = np.random.default_rng(2)
+    a_sq = bitset.np_to_words(bitset.pack_bits_np(
+        rng.random((4096, 4096)) < 1 / 1024), dev)
+    sq_rows, sq_cols = ref.set_bits(a_sq)
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([sq_rows, sq_cols]),
+        torch.ones(sq_rows.numel(), device=dev), (4096, 4096)).to_sparse_csr()
+    for op, np_dt, cap in (("sum", np.uint32, semiring.COUNT_CAP),
+                           ("or", np.uint8, 0)):
+        hi = cap if op == "sum" else 255
+        x_np = rng.integers(0, hi + 1, (4096, 128)).astype(np_dt)
+        x_sq = torch.from_numpy(x_np.view(
+            np.int32 if np_dt == np.uint32 else np.uint8)).to(dev)
+        lib = None
+        if op == "sum":   # the unsaturated sum: one CSR product in float32
+            x_f = semiring.widen(x_sq).to(torch.float32)
+            lib = (lambda x_f=x_f: torch.sparse.mm(a_csr, x_f))
+        ok &= record(
+            f"lane_matmul[{op},u{8 * x_sq.element_size()},4096]",
+            "src/repro_torch/kernels/csrc/lane_matmul.cu",
+            "src/repro/kernels/bitset_matmul.py:143",
+            ops.frontier_step_lanes(a_sq, x_sq, op=op, cap=cap),
+            ref.lane_matmul_ref(a_sq, x_sq, op=op, cap=cap),
+            lambda x_sq=x_sq, op=op, cap=cap: ops.frontier_step_lanes(
+                a_sq, x_sq, op=op, cap=cap),
+            lambda x_sq=x_sq, op=op, cap=cap: ref.lane_matmul_ref(
+                a_sq, x_sq, op=op, cap=cap),
+            a_sq.numel() * 4 + (int(sq_cols.unique().numel()) + 4096)
+            * 128 * x_sq.element_size(),
+            a_sq.numel() + sq_rows.numel() * 128, lib_fn=lib,
+            n_launches=dist_launches.get("lane_matmul", 0))
+    ok &= record(
+        "popcount_rows", "src/repro_torch/kernels/csrc/popcount.cu",
+        "src/repro/kernels/popcount.py:17",
+        ops.popcount(h_rows), ref.popcount_rows_ref(h_rows),
+        lambda: ops.popcount(h_rows), lambda: ref.popcount_rows_ref(h_rows),
+        h_rows.numel() * 4 + h_rows.shape[0] * 4, h_rows.numel() * 2,
+        n_launches=aux_launches.get("popcount_rows", 0))
+    b6 = ops.block_sparse_lane_matmul(comp, x_dist, op="min")
+    b6_plain = ref.block_sparse_lane_matmul_ref(comp, x_dist, op="min")
+    b4_dense = ops.frontier_step_lanes(
+        adj, ref.pad_k_lanes(x_dist, kw * 32, "min"), op="min")
+    colr6, xany6 = ref.k_block_lane_summaries(x_dist, comp.grid[1], bk,
+                                              "min", 0)
+    live6 = (comp.states != 0) & (xany6 != 0)[None, :]
+    n_live6 = int(live6.sum())
+    n_mixed6 = int((live6 & (comp.states == 2)).sum())
+    live_k6 = int((xany6 != 0).sum())
+    ok &= record(
+        "block_sparse_lane_matmul[min,u16]",
+        "src/repro_torch/kernels/csrc/block_sparse_lane.cu",
+        "src/repro/kernels/block_sparse.py:172", b6, b6_plain,
+        lambda: ops.block_sparse_lane_matmul(comp, x_dist, op="min"),
+        lambda: ref.block_sparse_lane_matmul_ref(comp, x_dist, op="min"),
+        (comp.states.numel() + n_live6 * 4 + n_mixed6 * comp.br * comp.bw * 4
+         + comp.grid[1] * 4 + live_k6 * (1 + bk) * w_d * lanes_b
+         + comp.grid[0] * comp.br * w_d * lanes_b),
+        comp.states.numel() + 2 * g.n_edges * w_d,
+        n_launches=aux_launches.get("block_sparse_lane_matmul", 0),
+        err=max(words_err(torch, b6, b6_plain),
+                words_err(torch, b6, b4_dense)))
+    print(f"block_sparse_lane_matmul: {n_live6} live blocks "
+          f"({n_mixed6} MIXED), {live_k6} of {comp.grid[1]} k-blocks live; "
+          f"max_abs_err against B4 on the decompressed matrix "
+          f"{words_err(torch, b6, b4_dense)}")
+    del b6, b6_plain, b4_dense, a_csr
+    if not ok:
+        return fail("a semiring kernel disagrees with its plain version")
+
+    # ---- 6. where the time goes (a second, profiled run) -----------------
     t0 = time.perf_counter()
     tdr_build.dfs_intervals(g)
     t_dfs = time.perf_counter() - t0
@@ -361,7 +577,10 @@ def main() -> int:
             ("build_index", lambda: tdr_build.build_index(g, cfg)),
             ("answer_batch", lambda: (eng._label_adj.clear(),
                                       tdr_query.answer_batch(
-                idx, queries, exact_chunk=EXACT_CHUNK)))):
+                idx, queries, exact_chunk=EXACT_CHUNK))),
+            ("dist_batch", lambda: (eng._label_adj.clear(),
+                                    tdr_query.dist_batch(
+                idx, dq, exact_chunk=EXACT_CHUNK)))):
         wall, busy, top = profile(torch, fn)
         print(f"profile {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall):.1f}% idle); top device time: "

@@ -141,3 +141,14 @@ def full_words_where(cond: torch.Tensor) -> torch.Tensor:
 def words_contain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``b ⊆ a`` elementwise over trailing word axis -> bool [...]."""
     return ((a & b) == b).all(dim=-1)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Population count over the trailing word axis -> int32 (SWAR on the
+    words widened to their unsigned int64 values)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    return x.sum(dim=-1, dtype=torch.int32)

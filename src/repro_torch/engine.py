@@ -22,6 +22,11 @@ backends are bit-exact against each other and against the JAX package.
 Each fixpoint is a Python loop with one host sync per round (the JAX
 package runs one device ``while_loop``); converged planes and round counts
 are the same.
+
+``propagate`` and ``closure`` take a semiring (``sr=``, default
+``BOOLEAN``): lane carriers (DIST16/DIST8/COUNT, ``repro_torch.semiring``)
+run ``lane_matmul`` on ``matmul`` and a gather plus a lane scatter
+reduction on ``segment``, always through the dense cores.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from .bitset import resolve_device  # noqa: F401  (re-exported)
 from .compressed import BlockCompressed, compress_blocks
 from .graph import Graph, csr_row_edges
 from .kernels import ops
+from .semiring import BOOLEAN, Semiring
 
 BACKENDS = ("segment", "matmul")
 CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
@@ -112,24 +118,29 @@ def pack_label_class_edges_np(src: np.ndarray, dst: np.ndarray,
 
 
 # --------------------------------------------------------------- closures
-def _matmul_rows(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``OR_j adj[i,j] & x[j]`` with x's rows zero-padded to adj's bit
-    width (pad rows carry no adjacency bits, so they never select)."""
+def _matmul_rows(adj: torch.Tensor, x: torch.Tensor,
+                 sr: Semiring = BOOLEAN) -> torch.Tensor:
+    """``(+)_j adj[i,j] (x) x[j]`` with x's rows zero-padded to adj's bit
+    width (pad rows carry no adjacency bits, so they never select).  Lane
+    carriers apply ``sr.extend`` after the reduce; min is monotone, so
+    that equals extending before it."""
     k = adj.shape[1] * bitset.WORD
     if x.shape[0] < k:
         x = torch.cat([x, x.new_zeros((k - x.shape[0],) + x.shape[1:])])
-    return ops.frontier_step(adj, x)
+    if sr.packed:
+        return ops.frontier_step(adj, x)
+    return sr.extend(ops.frontier_step_lanes(adj, x, op=sr.op, cap=sr.cap))
 
 
-def _fixpoint(base: torch.Tensor, step, max_iters: int):
-    """lfp(R = base ∨ step(R)) with the reference's round count: a round
-    runs while the previous one added bits, and the round that adds none
-    is counted."""
+def _fixpoint(base: torch.Tensor, step, max_iters: int,
+              sr: Semiring = BOOLEAN):
+    """lfp(R = base (+) step(R)) with the reference's round count: a round
+    runs while the previous one changed R, and the round that changes
+    nothing is counted."""
     r, rounds, changed = base, 0, True
     while changed and rounds < max_iters:
-        new = step(r) & ~r
-        r = r | new
-        changed = bool((new != 0).any())
+        r, ch = sr.accumulate(r, step(r))
+        changed = bool(ch)
         rounds += 1
     return r, rounds
 
@@ -264,19 +275,24 @@ class Engine:
             return self.edge_src, self.edge_dst
         return self.edge_dst, self.edge_src
 
-    def propagate(self, x: torch.Tensor, *,
-                  reverse: bool = False) -> torch.Tensor:
-        """One round: ``out[a] = OR_{(a,b)} x[b]`` (``reverse`` flips the
-        edges)."""
+    def propagate(self, x: torch.Tensor, *, reverse: bool = False,
+                  sr: Semiring = BOOLEAN) -> torch.Tensor:
+        """One semiring round: ``out[a] = (+)_{(a,b)} extend(x[b])``
+        (``reverse`` flips the edges).  ``sr=BOOLEAN`` is the packed OR
+        round; lane carriers run one lane per column of ``x``."""
         if self.backend == "matmul":
-            return _matmul_rows(self.adjacency(reverse=reverse), x)
+            return _matmul_rows(self.adjacency(reverse=reverse), x, sr=sr)
         gather, scatter = self._edges(reverse)
-        return self.segment_or(x[gather], scatter, self.graph.n_vertices)
+        if sr.packed:
+            return self.segment_or(x[gather], scatter, self.graph.n_vertices)
+        return sr.segment_combine(sr.extend(x[gather]), scatter,
+                                  num_segments=self.graph.n_vertices)
 
     def closure(self, base: torch.Tensor, *, reverse: bool = False,
                 max_iters: int | None = None,
-                sparse: bool | None = None) -> tuple[torch.Tensor, int]:
-        """Least fixpoint ``R = base ∨ propagate(R)``; returns (R, rounds).
+                sparse: bool | None = None,
+                sr: Semiring = BOOLEAN) -> tuple[torch.Tensor, int]:
+        """Least fixpoint ``R = base (+) propagate(R)``; returns (R, rounds).
 
         ``sparse`` routes the fixpoint through the block-sparse kernel
         (``matmul``) or frontier-compacted edge gathers (``segment``); both
@@ -284,8 +300,26 @@ class Engine:
         ``EngineConfig.sparse``) engages it always on ``segment`` and on
         ``matmul`` when the engine runs on a card; on the CPU the matmul
         closure stays dense, as the reference's interpret mode does.
-        ``sparse=True`` forces it anywhere."""
+        ``sparse=True`` forces it anywhere.
+
+        ``sr`` selects the semiring.  A fixpoint needs an idempotent (+),
+        so COUNT is refused (route counting is the bounded DP of
+        ``tdr_query.count_routes``).  Lane carriers always run the dense
+        cores: the block-sparse and frontier machinery is specific to the
+        packed boolean layout."""
         max_iters = max_iters or self.graph.n_vertices
+        if not sr.idempotent:
+            raise ValueError(
+                f"closure needs an idempotent semiring, got {sr.name}; "
+                "use a bounded DP (tdr_query.count_routes) instead")
+        if not sr.packed:
+            if self.backend == "matmul":
+                adj = self.adjacency(reverse=reverse)
+                return _fixpoint(base, lambda r: _matmul_rows(adj, r, sr=sr),
+                                 max_iters, sr)
+            return _fixpoint(
+                base, lambda r: self.propagate(r, reverse=reverse, sr=sr),
+                max_iters, sr)
         if sparse is None:
             sparse = self.config.sparse and (
                 self.backend == "segment" or self.device.type == "cuda")

@@ -30,16 +30,21 @@ import torch
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bitset_matmul.cu", "way_filter.cu", "block_sparse.cu")
+SOURCES = ("bitset_matmul.cu", "way_filter.cu", "block_sparse.cu",
+           "lane_matmul.cu", "block_sparse_lane.cu", "popcount.cu")
+HEADERS = ("lane_ops.cuh",)   # included by sources; part of the build hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _ARGTYPES = {
     "tdr_bitset_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "tdr_way_filter": [_P] * 9 + [_I] * 5 + [_P],
     "tdr_block_sparse_matmul": [_P] * 7 + [_I] * 6 + [_P],
+    "tdr_lane_matmul": [_P, _P, _P] + [_I] * 5 + [_U, _P],
+    "tdr_block_sparse_lane_matmul": [_P] * 7 + [_I] * 8 + [_U, _P],
+    "tdr_popcount_rows": [_P, _P, _I, _I, _P],
 }
 
 
@@ -75,7 +80,7 @@ def nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

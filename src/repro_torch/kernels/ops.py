@@ -13,8 +13,11 @@ import torch
 from . import ref
 from ._build import KERNEL_LAUNCHES  # noqa: F401  (re-exported)
 from .bitset_matmul import cuda_bitset_matmul
-from .block_sparse import cuda_block_sparse_matmul
+from .block_sparse import (block_sparse_lane_matmul,  # noqa: F401
+                           cuda_block_sparse_matmul)
+from .lane_matmul import cuda_lane_matmul
 from .pattern_filter import cuda_way_filter
+from .popcount import cuda_popcount_rows
 from ..compressed import BlockCompressed
 
 
@@ -23,6 +26,16 @@ def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a_packed.is_cuda:
         return cuda_bitset_matmul(a_packed, x.contiguous())
     return ref.bitset_matmul_ref(a_packed, x)
+
+
+def frontier_step_lanes(a_packed: torch.Tensor, x: torch.Tensor, *,
+                        op: str, cap: int = 0) -> torch.Tensor:
+    """One semiring expansion round over stored lanes (one semiring value
+    per element, not packed bits): ``(+)_j (A[i,j] (x) X[j,:])``, with
+    ``op`` "or", "min" (identity INF) or "sum" (saturating at ``cap``)."""
+    if a_packed.is_cuda:
+        return cuda_lane_matmul(a_packed, x.contiguous(), op=op, cap=cap)
+    return ref.lane_matmul_ref(a_packed, x, op=op, cap=cap)
 
 
 def frontier_step_sparse(comp: BlockCompressed,
@@ -41,3 +54,10 @@ def filter_ways(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
             h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb, null_plane)))
     return ref.way_filter_ref(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
                               null_plane)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Popcount over the trailing axis of int32 words [N, W] -> int32 [N]."""
+    if words.is_cuda:
+        return cuda_popcount_rows(words.contiguous())
+    return ref.popcount_rows_ref(words)

@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the three hand kernels.
+"""Plain PyTorch versions of the six hand kernels.
 
 Each function computes what its CUDA kernel computes, on either device,
-with packed words as int32.  They are the kernels' CPU path and their
+with packed words as int32 and semiring lanes in their stored width (see
+``repro_torch.semiring``).  They are the kernels' CPU path and their
 equality target on the card; nothing on the main path calls them when
-the tensors live on a card.  The contractions unpack bits and threshold a
-float32 matmul, exact because every count stays below 2^24.
+the tensors live on a card.  The boolean contractions unpack bits and
+threshold a float32 matmul, exact because every count stays below 2^24.
+The lane contractions gather on A's set bits instead of materialising
+``[M, K, W]``: each set bit ``(i, j)`` folds row ``j`` of X into row ``i``
+of the output (``scatter_reduce("amin")``, an int64 ``index_add_`` then
+the clamp, or an OR over the lanes' bit planes).
 """
 from __future__ import annotations
 
@@ -12,10 +17,14 @@ import torch
 
 from .. import bitset
 from ..compressed import ALL_ONE, BlockCompressed
+from ..semiring import lane_bits, lane_max, narrow, widen
 
 WORD = 32
 # float32 elements of one unpacked operand slab (bounds transient memory)
 _SLAB = 1 << 26
+# gathered lane elements per fold step (bounds transient memory)
+_LANE_CHUNK = 1 << 22
+LANE_OPS = ("or", "min", "sum")
 
 
 def bitset_matmul_ref(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -103,3 +112,142 @@ def block_sparse_matmul_ref(comp: BlockCompressed,
             num_segments=mb)
     out = mix_or.reshape(mb, br, w) | one_or[:, None, :]
     return out.reshape(mb * br, w)[:m]
+
+
+def popcount_rows_ref(words: torch.Tensor) -> torch.Tensor:
+    """Popcount over the trailing axis of int32 words [N, W] -> int32 [N]."""
+    return bitset.popcount(words)
+
+
+# ------------------------------------------------------------- lane forms
+def lane_identity(op: str, bits: int) -> int:
+    """(+)-identity of a lane combine: the lane maximum (INF) for min."""
+    if op not in LANE_OPS:
+        raise ValueError(f"unknown lane op {op!r}; expected one of "
+                         f"{LANE_OPS}")
+    return lane_max(bits) if op == "min" else 0
+
+
+def set_bits(a_packed: torch.Tensor):
+    """(row, column) int64 of every set bit of a packed bit-matrix
+    ``[M, Kw]``, found from its non-zero words."""
+    wi, wj = torch.nonzero(a_packed, as_tuple=True)
+    shifts = torch.arange(WORD, dtype=torch.int32, device=a_packed.device)
+    hit = ((a_packed[wi, wj][:, None] >> shifts) & 1) != 0    # [nw, 32]
+    n, b = torch.nonzero(hit, as_tuple=True)
+    return wi[n], wj[n] * WORD + b
+
+
+def _lane_fold(out: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+               op: str, bits: int) -> None:
+    """``out[rows[e]] (+)= vals[e]`` over int64 lane values, in place
+    (sums are clamped by the caller, once, at the end)."""
+    if rows.numel() == 0:
+        return
+    if op == "sum":
+        out.index_add_(0, rows, vals)
+        return
+    idx = rows[:, None].expand_as(vals)
+    if op == "min":
+        out.scatter_reduce_(0, idx, vals, "amin")
+        return
+    for b in range(bits):   # OR: one amax per bit plane
+        plane = torch.zeros_like(out).scatter_reduce_(
+            0, idx, (vals >> b) & 1, "amax")
+        out |= plane << b
+
+
+def _fold_gathered(out, rows, cols, xv, op, bits) -> None:
+    """Fold ``xv[cols[e]]`` into ``out[rows[e]]`` in bounded chunks."""
+    step = max(1, _LANE_CHUNK // max(xv.shape[1], 1))
+    for s0 in range(0, rows.numel(), step):
+        _lane_fold(out, rows[s0:s0 + step], xv[cols[s0:s0 + step]], op,
+                   bits)
+
+
+def lane_matmul_ref(a_packed: torch.Tensor, x: torch.Tensor, *, op: str,
+                    cap: int = 0) -> torch.Tensor:
+    """``(+)_j (A[i,j] (x) X[j,:])`` over semiring lanes.
+
+    ``a_packed`` int32 [M, K/32]; ``x`` stored lanes [K, W] (uint8 /
+    int16 / int32 for 8 / 16 / 32-bit lanes) -> [M, W] in ``x``'s dtype.
+    ``op``: "or", "min" (identity = the lane maximum, INF) or "sum"
+    (saturating at ``cap``)."""
+    m, kw = a_packed.shape
+    k, w = x.shape
+    if kw * WORD != k:
+        raise ValueError(f"shape mismatch: A {tuple(a_packed.shape)}, "
+                         f"X {tuple(x.shape)}")
+    bits = lane_bits(x)
+    out = torch.full((m, w), lane_identity(op, bits), dtype=torch.int64,
+                     device=x.device)
+    rows, cols = set_bits(a_packed)
+    _fold_gathered(out, rows, cols, widen(x).to(torch.int64), op, bits)
+    if op == "sum":
+        out = out.clamp(max=cap)
+    return narrow(out, bits)
+
+
+def pad_k_lanes(x: torch.Tensor, k_pad: int, op: str) -> torch.Tensor:
+    """Pad the row axis of stored lanes up to ``k_pad`` rows with the
+    (+)-identity, so pad rows cannot perturb any op (an ALL_ONE k-block's
+    column summary reduces over them)."""
+    if x.shape[0] < k_pad:
+        ident = lane_identity(op, lane_bits(x))
+        pad = narrow(torch.full((k_pad - x.shape[0],) + x.shape[1:], ident,
+                                dtype=torch.int64, device=x.device),
+                     lane_bits(x))
+        x = torch.cat([x, pad])
+    return x
+
+
+def k_block_lane_summaries(x: torch.Tensor, kb: int, bk: int, op: str,
+                           cap: int):
+    """Per-k-block column-(+) of stored lanes ``[KB, W]`` (x's dtype) and
+    liveness flags int32 ``[KB]`` (some lane is not the identity)."""
+    bits = lane_bits(x)
+    ident = lane_identity(op, bits)
+    xr = widen(pad_k_lanes(x, kb * bk, op)).reshape(kb, bk, x.shape[1])
+    if op == "or":
+        colr = bitset.or_reduce(xr, axis=1)
+    elif op == "min":
+        colr = xr.amin(dim=1)
+    else:
+        colr = xr.sum(dim=1, dtype=torch.int64).clamp(max=cap)
+    xany = (xr != ident).any(dim=2).any(dim=1).to(torch.int32)
+    return narrow(colr, bits), xany
+
+
+def block_sparse_lane_matmul_ref(comp: BlockCompressed, x: torch.Tensor, *,
+                                 op: str, cap: int = 0) -> torch.Tensor:
+    """``lane_matmul_ref`` with A in ``BlockCompressed`` form: ONE blocks
+    fold the k-block column-(+) into every row of their row-block, MIXED
+    blocks fold the X rows their pool bits select.  ``x`` stored lanes
+    ``[V, W]`` with ``V <= K`` (padded with the identity) -> ``[M, W]``."""
+    m, _ = comp.shape
+    mb, kb = comp.grid
+    br, bw = comp.br, comp.bw
+    bk = bw * WORD
+    w = x.shape[1]
+    bits = lane_bits(x)
+    dev = x.device
+    xv = widen(pad_k_lanes(x, kb * bk, op)).to(torch.int64)
+    colr, xany = k_block_lane_summaries(x, kb, bk, op, cap)
+    out = torch.full((mb * br, w), lane_identity(op, bits),
+                     dtype=torch.int64, device=dev)
+
+    one = (comp.states == ALL_ONE) & (xany != 0)[None, :]
+    one_bi, one_bj = torch.nonzero(one, as_tuple=True)
+    rows = (one_bi[:, None] * br
+            + torch.arange(br, device=dev)[None, :]).reshape(-1)
+    _fold_gathered(out, rows, one_bj.repeat_interleave(br),
+                   widen(colr).to(torch.int64), op, bits)
+
+    p_rows, p_cols = set_bits(comp.pool.reshape(-1, bw))     # [P*br, bw]
+    slot = p_rows // br
+    rows = comp.mix_bi.long()[slot] * br + p_rows % br
+    cols = comp.mix_bj.long()[slot] * bk + p_cols
+    _fold_gathered(out, rows, cols, xv, op, bits)
+    if op == "sum":
+        out = out.clamp(max=cap)
+    return narrow(out, bits)[:m]

@@ -30,6 +30,14 @@ The expansion is exact (the corridor is a superset of every u→v path), so
 answers equal the DFS oracle bit for bit.  Every loop is a Python loop
 with one host sync per round; plan shapes, round counts and ``QueryStats``
 equal the JAX package's.
+
+The other query kinds (``QUERY_KINDS``) run lane DPs over the same
+corridor-compacted subgraphs, at the bottom of this module: ``dist_batch``
+/ ``dist`` (shortest pattern-constrained hop distance, a bidirectional
+(min, +) fixpoint; on ``matmul`` one ``lane_matmul`` per label class per
+direction per round), ``witness`` (an actual shortest path) and
+``count_routes`` (bounded, saturating walk counts), and ``answer_mixed``
+routes a batch of mixed kinds.
 """
 from __future__ import annotations
 
@@ -45,12 +53,21 @@ from . import bitset
 from . import engine as engine_mod
 from . import graph as graph_mod
 from . import pattern as pat
+from . import dfs_baseline as dfs_mod
 from .kernels import ops
+from .semiring import COUNT_CAP, DIST16, narrow, widen
 from .tdr_build import TDRIndex, _null_words
 
 FALSE, TRUE, UNKNOWN = 0, 1, 2
 
 EXACT_MODES = ("auto", "compact", "full")
+
+#: query kinds the planner accepts (one per query): boolean reachability,
+#: shortest pattern-constrained hop distance, an actual witness path,
+#: bounded route counting, and regular path queries.  ``answer_plan``
+#: serves "bool"; ``dist_batch`` / ``witness`` / ``count_routes`` the
+#: next three; "rpq" queries carry a regex AST instead of a pattern.
+QUERY_KINDS = ("bool", "dist", "witness", "count", "rpq")
 
 
 def _i32(x: int) -> int:
@@ -76,6 +93,8 @@ class QueryPlan:
     full_mask: np.ndarray   # int32 [J]        target subset state
     n_queries: int
     max_m: int
+    # per-query kind (one of QUERY_KINDS); () means all "bool"
+    kinds: tuple = ()
 
     @property
     def n_jobs(self) -> int:
@@ -101,7 +120,7 @@ class QueryPlan:
             req_labels=np.concatenate(
                 [self.req_labels, np.full((p, self.max_m), -1, np.int32)]),
             full_mask=zrows(self.full_mask),
-            n_queries=self.n_queries, max_m=self.max_m)
+            n_queries=self.n_queries, max_m=self.max_m, kinds=self.kinds)
 
 
 @dataclasses.dataclass
@@ -217,10 +236,25 @@ def compile_queries(index: TDRIndex,
                     queries: Sequence[tuple[int, int, pat.Pattern]],
                     max_m: int = 4,
                     stats: "QueryStats | None" = None) -> QueryPlan:
-    """Compile (u, v, pattern) triples into a ``QueryPlan``."""
+    """Compile (u, v, pattern[, kind]) tuples into a ``QueryPlan``.  The
+    optional fourth element is one of ``QUERY_KINDS`` (default "bool"); it
+    does not change the plan rows, only which executor serves the query."""
     cfg = index.cfg
     wl = bitset.n_words(cfg.lab_bits)
     wraw = bitset.n_words(max(index.graph.n_labels, 1))
+    kinds = []
+    for q in queries:
+        kind = q[3] if len(q) > 3 else "bool"
+        if kind not in QUERY_KINDS:
+            raise ValueError(
+                f"unknown query kind {kind!r}; expected one of "
+                f"{QUERY_KINDS}")
+        if kind == "rpq":
+            raise ValueError(
+                "kind='rpq' queries carry a regex AST, not a pattern; "
+                "route them through answer_mixed")
+        kinds.append(kind)
+    queries = [(q[0], q[1], q[2]) for q in queries]
     rows_per_q = [pattern_rows(index, p, max_m, stats=stats)
                   for (_, _, p) in queries]
     counts = np.asarray([r.n_terms for r in rows_per_q], dtype=np.int64)
@@ -245,7 +279,8 @@ def compile_queries(index: TDRIndex,
         forb_raw_w=cat("forb_raw_w", wraw),
         req_labels=cat("req_labels", max_m),
         full_mask=cat("full_mask", 0),
-        n_queries=len(queries), max_m=max_m)
+        n_queries=len(queries), max_m=max_m,
+        kinds=tuple(kinds) if any(k != "bool" for k in kinds) else ())
 
 
 # ---------------------------------------------------------------- phase 1
@@ -738,6 +773,11 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     if exact_mode not in EXACT_MODES:
         raise ValueError(f"unknown exact_mode {exact_mode!r}; expected one "
                          f"of {EXACT_MODES}")
+    if any(k != "bool" for k in plan.kinds):
+        raise ValueError(
+            "answer_plan serves kind='bool' plans only; route mixed-kind "
+            "batches through answer_mixed (or dist_batch / witness / "
+            "count_routes directly)")
     t0 = _t0 if _t0 is not None else time.perf_counter()
     eng = index.engine(backend, engine_config)
     dev = index.device
@@ -850,3 +890,585 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
 def answer(index: TDRIndex, u: int, v: int, p: pat.Pattern, **kw) -> bool:
     """Single-query convenience wrapper over ``answer_batch``."""
     return bool(answer_batch(index, [(u, v, p)], **kw)[0])
+
+
+# ------------------------------------------------- semiring query kinds
+# The executors below answer the non-boolean QUERY_KINDS over the same
+# corridor-compacted subgraphs phase 2 uses, with a (min, +) distance DP
+# ("dist"/"witness") or a saturating route-count DP ("count") instead of
+# the packed boolean closure.  Product-graph states are the same (vertex,
+# seen-required-subset) pairs; the carrier is a dense [V', J, S] lane
+# plane.  Distance planes hold their uint16 values widened to int32
+# (DIST_INF = 65535 is INF) and are narrowed to the stored uint16 lanes
+# only for ``lane_matmul``; count planes are int64, so no sum can wrap
+# before its clamp.
+#
+# Reusing the corridor is sound: every vertex on a u→v walk is reachable
+# from u and co-reachable to v, so it lies in the Bloom corridor
+# N_out(u) ∩ N_in(v) — compaction never cuts a path or a counted walk.
+
+#: distance-plane INF (the uint16 carrier's saturation point)
+DIST_INF = DIST16.inf
+
+# int32 sentinel for the bidirectional meet arithmetic: it dominates any
+# real distance (<= DIST_INF - 1), and sentinel + sentinel cannot wrap
+_DBIG = 1 << 24
+
+
+def _edge_dist_ops(lab, req_labels, forb_raw_w, max_m: int, evalid=None,
+                   neutral=None):
+    """Per-(job, edge|class) DP operands: ``allow`` bool [J, E] (edge
+    usable for the job) and ``sh`` int32 [J, E] (the subset bit the edge's
+    label sets, 0 if not required).  ``evalid`` masks bucket-padding edge
+    rows, which would double-count in the sum DP; ``neutral`` marks merged
+    label-class rows (always allowed, no subset bit)."""
+    labx = lab.clamp(min=0)
+    okbit = (forb_raw_w[:, labx >> 5] >> (labx & 31)[None, :]) & 1
+    allow = okbit == 0                                          # [J, E|C]
+    if neutral is not None:
+        allow = allow | neutral[None, :]
+    if evalid is not None:
+        allow = allow & evalid[None, :]
+    sh = torch.zeros((req_labels.shape[0], lab.shape[0]), dtype=torch.int32,
+                     device=lab.device)
+    for i in range(max_m):   # require-sets hold distinct ids
+        match = req_labels[:, i][:, None] == lab[None, :]
+        if neutral is not None:
+            match = match & ~neutral[None, :]
+        sh = torch.where(match, 1 << i, sh)
+    return allow, sh
+
+
+def _subset_step(y, sh, allow, s_idx):
+    """Per-edge subset transition of a [rows, J, S] plane: target state s
+    takes min(y[s], y[s ^ sh]) where it holds the edge's subset bit (or
+    the edge sets none), INF where the edge is not allowed."""
+    alt = torch.take_along_dim(y, (s_idx ^ sh).long(), dim=2)
+    ok = ((s_idx & sh) == sh) & allow
+    return torch.where(ok, torch.minimum(y, alt), DIST_INF)
+
+
+def _dist_meet(df, db, full_mask, best, n_states: int):
+    """best[j] = min over vertices x and state pairs (s1, s2) with
+    ``s1 | s2 == full_mask[j]`` of ``df[x,j,s1] + db[x,j,s2]``."""
+    dfi = torch.where(df == DIST_INF, _DBIG, df)
+    dbi = torch.where(db == DIST_INF, _DBIG, db)
+    s_idx = torch.arange(n_states, dtype=torch.int32, device=df.device)
+    for s1 in range(n_states):
+        valid = (s1 | s_idx)[None, :] == full_mask[:, None]      # [J, S]
+        tot = dfi[:, :, s1:s1 + 1] + dbi                         # [V', J, S]
+        tot = torch.where(valid[None], tot, _DBIG)
+        best = torch.minimum(best, tot.amin(dim=(0, 2)))
+    return best
+
+
+def _dist_bidi_loop(df0, db0, push_f, push_b, full_mask, it_cap: int,
+                    n_states: int, max_rounds: int):
+    """Alternating bidirectional (min, +) fixpoint.  A job is done once
+    its best meet value is <= 2·it: after ``it`` rounds each plane holds
+    every product distance <= it exactly, so any path of length <= 2·it
+    has met.  The loop test runs before each round, and a direction whose
+    last push relaxed nothing skips its push, as in the JAX package; one
+    host sync per round reads the three flags."""
+    df, db = df0, db0
+    best = _dist_meet(df, db, full_mask,
+                      torch.full((df.shape[1],), _DBIG, dtype=torch.int32,
+                                 device=df.device), n_states)
+    cf, cb, it = True, True, 0
+    all_done = bool((best <= 0).all())
+    while (cf or cb) and not all_done and it < max_rounds and it < it_cap:
+        ndf = torch.minimum(df, push_f(df)) if cf else df
+        ndb = torch.minimum(db, push_b(db)) if cb else db
+        best = _dist_meet(ndf, ndb, full_mask, best, n_states)
+        it += 1
+        cf, cb, all_done = torch.stack(
+            [(ndf != df).any(), (ndb != db).any(),
+             (best <= 2 * it).all()]).tolist()
+        df, db = ndf, ndb
+    return best, it
+
+
+def _dist_seed(idx, v_p: int, n_states: int):
+    """[V', J, S] INF plane with distance 0 at (idx[j], j, state ∅)."""
+    j_n = idx.shape[0]
+    d = torch.full((v_p, j_n, n_states), DIST_INF, dtype=torch.int32,
+                   device=idx.device)
+    d[idx, torch.arange(j_n, device=idx.device), 0] = 0
+    return d
+
+
+def _dist_bidi(su, sv, req_labels, forb_raw_w, full_mask, sub_src, sub_dst,
+               sub_lab, evalid, it_cap: int, v_p: int, n_states: int,
+               max_m: int, max_rounds: int):
+    """Segment-family bidirectional distance core over a (sub)graph's edge
+    lists: one round = lane gather, per-edge subset transition,
+    saturating +1, segment-min scatter."""
+    allow, sh = _edge_dist_ops(sub_lab, req_labels, forb_raw_w, max_m,
+                               evalid=evalid)
+    allow_t = allow.T[:, :, None]                               # [E, J, 1]
+    sh_t = sh.T[:, :, None]
+    s_idx = torch.arange(n_states, dtype=torch.int32, device=su.device)
+
+    def push(dist, gat, scat):
+        val = _subset_step(dist[gat], sh_t, allow_t, s_idx)     # [E, J, S]
+        val = val + (val < DIST_INF).to(torch.int32)            # saturating +1
+        out = torch.full((v_p,) + val.shape[1:], DIST_INF, dtype=torch.int32,
+                         device=val.device)
+        return out.scatter_reduce_(
+            0, scat[:, None, None].expand_as(val), val, "amin")
+
+    return _dist_bidi_loop(
+        _dist_seed(su, v_p, n_states), _dist_seed(sv, v_p, n_states),
+        lambda d: push(d, sub_src, sub_dst),
+        lambda d: push(d, sub_dst, sub_src),
+        full_mask, it_cap, n_states, max_rounds)
+
+
+def _dist_bidi_matmul(su, sv, req_labels, forb_raw_w, full_mask, adj_rev,
+                      adj_fwd, class_label, it_cap: int, n_states: int,
+                      max_m: int, max_rounds: int):
+    """Kernel-backend distance core: one ``lane_matmul`` (min) per label
+    class per direction per round, over the plane flattened to [V', J·S]
+    uint16 lanes.  ``_matmul_rows`` applies the DIST16 extend (saturating
+    +1) after each product; min is monotone, so that equals extending
+    before it, and the per-class results combine by lane min."""
+    j_n = su.shape[0]
+    v_p = adj_rev.shape[1]
+    neutral = class_label < 0
+    allow, sh = _edge_dist_ops(class_label, req_labels, forb_raw_w, max_m,
+                               neutral=neutral)                 # [J, C]
+    s_idx = torch.arange(n_states, dtype=torch.int32, device=su.device)
+
+    def push(dist, adj_set):
+        lanes = narrow(dist.reshape(v_p, j_n * n_states), DIST16.bits)
+        upd = torch.full_like(dist, DIST_INF)
+        for c in range(adj_set.shape[0]):
+            y = widen(engine_mod._matmul_rows(
+                adj_set[c], lanes, sr=DIST16)[:v_p]).reshape(
+                    v_p, j_n, n_states)
+            upd = torch.minimum(upd, _subset_step(
+                y, sh[:, c][None, :, None], allow[:, c][None, :, None],
+                s_idx))
+        return upd
+
+    return _dist_bidi_loop(
+        _dist_seed(su, v_p, n_states), _dist_seed(sv, v_p, n_states),
+        lambda d: push(d, adj_rev), lambda d: push(d, adj_fwd),
+        full_mask, it_cap, n_states, max_rounds)
+
+
+def _dist_forward_parents(su: int, req_labels, forb_raw_w, sub_src, sub_dst,
+                          sub_lab, evalid, v_p: int, n_states: int,
+                          max_m: int, max_rounds: int):
+    """Single-term forward distance DP with parent-edge planes.
+
+    Unit weights make the DP BFS-layered (a cell's first finite write is
+    its final distance), so a parent is recorded only on ``winner`` cells
+    (``upd < dist``): the round's arriving values are compared with the
+    winning value and the least matching edge id is scattered.  Per-edge
+    parent scatters are edge-indexed, so witnesses use this segment core
+    on both backends."""
+    allow, sh = _edge_dist_ops(sub_lab, req_labels[None, :],
+                               forb_raw_w[None, :], max_m, evalid=evalid)
+    allow = allow[0][:, None, None]                             # [E, 1, 1]
+    sh = sh[0][:, None, None]
+    dev = sub_src.device
+    s_idx = torch.arange(n_states, dtype=torch.int32, device=dev)
+    eids = torch.arange(sub_lab.shape[0], dtype=torch.int32,
+                        device=dev)[:, None]
+    d = torch.full((v_p, n_states), DIST_INF, dtype=torch.int32, device=dev)
+    d[su, 0] = 0
+    par = torch.full((v_p, n_states), -1, dtype=torch.int32, device=dev)
+    idx = sub_dst[:, None].expand(-1, n_states)
+    changed, rounds = True, 0
+    while changed and rounds < max_rounds:
+        val = _subset_step(d[sub_src][:, None], sh, allow, s_idx)[:, 0]
+        val = val + (val < DIST_INF).to(torch.int32)            # [E, S]
+        upd = torch.full_like(d, DIST_INF).scatter_reduce_(0, idx, val,
+                                                           "amin")
+        winner = upd < d                  # first discovery == final dist
+        match = (val == upd[sub_dst]) & (val < DIST_INF)
+        cand = torch.where(match, eids, 1 << 30)
+        parc = torch.full_like(d, (1 << 31) - 1).scatter_reduce_(
+            0, idx, cand, "amin")
+        par = torch.where(winner, parc, par)
+        d = torch.minimum(d, upd)
+        changed = bool(winner.any())
+        rounds += 1
+    return d, par, rounds
+
+
+def _count_forward(su, sv, req_labels, forb_raw_w, full_mask, sub_src,
+                   sub_dst, sub_lab, evalid, hops: int, v_p: int,
+                   n_states: int, max_m: int, cap: int):
+    """Bounded route-count DP: w[x, j, s] = number of length-r walks from
+    u reaching x having seen subset s, every partial sum clamped at
+    ``cap``.  A target state s collects from s (label already seen) and,
+    when the edge's label is required (``sh > 0``), from s ^ sh.  Int64
+    planes; per-edge clamp + sum + clamp equals clamping the true total
+    (saturating add of non-negative values is associative)."""
+    j_n = su.shape[0]
+    dev = su.device
+    allow, sh = _edge_dist_ops(sub_lab, req_labels, forb_raw_w, max_m,
+                               evalid=evalid)
+    allow_t = allow.T[:, :, None]
+    sh_t = sh.T[:, :, None]
+    s_idx = torch.arange(n_states, dtype=torch.int32, device=dev)
+    iota = torch.arange(j_n, device=dev)
+    w = torch.zeros((v_p, j_n, n_states), dtype=torch.int64, device=dev)
+    w[su, iota, 0] = 1
+    total = ((su == sv) & (full_mask == 0)).to(torch.int64)   # empty walk
+    alt_idx = (s_idx[None, None, :] ^ sh_t).long()
+    ok = ((s_idx[None, None, :] & sh_t) == sh_t) & allow_t
+    for _ in range(hops):
+        rows = w[sub_src]                                       # [E, J, S]
+        alt = torch.take_along_dim(rows, alt_idx, dim=2)
+        contrib = rows + torch.where(sh_t > 0, alt, 0)
+        val = torch.where(ok, contrib.clamp(max=cap), 0)
+        w = torch.zeros_like(w).index_add_(0, sub_dst, val).clamp(max=cap)
+        total = (total + w[sv, iota, full_mask.long()]).clamp(max=cap)
+    return total
+
+
+class _KindChunk(NamedTuple):
+    """Host-side operands of one compacted (or full-graph) DP chunk."""
+    v_p: int                    # padded vertex bucket
+    su: np.ndarray              # renumbered sources int32 [J]
+    sv: np.ndarray              # renumbered targets int32 [J]
+    src: np.ndarray             # edge sources int32 [E'] (bucket-padded)
+    dst: np.ndarray             # edge targets int32 [E']
+    lab: np.ndarray             # edge labels int32 [E']
+    evalid: np.ndarray          # bool [E'], False on padding rows
+    sub_ids: np.ndarray | None  # local -> original vertex ids (None=full)
+    n_sub: int                  # |V'| before padding
+
+
+def _kind_chunk(index: TDRIndex, ex: ExactExecutor, plan: QueryPlan,
+                pd: PlanDevice, jobs: np.ndarray,
+                exact_mode: str) -> _KindChunk:
+    """Corridor-compact one job chunk for the lane DPs (the probe and
+    bucket discipline of ``ExactExecutor.run_chunk``, but edge padding
+    rows are masked through ``evalid`` instead of relying on
+    idempotence)."""
+    g = index.graph
+    v_n = g.n_vertices
+    compact = exact_mode in ("auto", "compact")
+    if compact:
+        member = ex.corridor_members(pd, jobs)
+        active = member.any(axis=0)
+        n_sub = int(active.sum())
+        if (exact_mode == "auto"
+                and graph_mod.pad_bucket(max(n_sub, 1), lo=32) >= v_n):
+            compact = False
+    if compact:
+        sub_ids, renum, s, d, l = graph_mod.induced_edges(
+            g, active, src=ex.src_np)
+        su = renum[plan.u[jobs]].astype(np.int32)
+        sv = renum[plan.v[jobs]].astype(np.int32)
+        v_p = graph_mod.pad_bucket(max(n_sub, 1), lo=32)
+    else:
+        sub_ids = None
+        n_sub = v_p = v_n
+        s, d, l = ex.src_np, ex.dst_np, ex.lab_np
+        su = plan.u[jobs].astype(np.int32)
+        sv = plan.v[jobs].astype(np.int32)
+    e_real = int(s.shape[0])
+    e_p = graph_mod.pad_bucket(max(e_real, 1), lo=32)
+    evalid = np.zeros(e_p, dtype=bool)
+    evalid[:e_real] = True
+    if e_p > e_real:
+        rep = e_p - e_real
+        if e_real:
+            s = np.concatenate([s, np.repeat(s[:1], rep)])
+            d = np.concatenate([d, np.repeat(d[:1], rep)])
+            l = np.concatenate([l, np.repeat(l[:1], rep)])
+        else:   # corridor holds no edges: the DP sees a masked bucket
+            s = np.zeros(e_p, np.int32)
+            d = np.zeros(e_p, np.int32)
+            l = np.zeros(e_p, np.int32)
+    return _KindChunk(v_p, su, sv, np.ascontiguousarray(s),
+                      np.ascontiguousarray(d), np.ascontiguousarray(l),
+                      evalid, sub_ids, n_sub)
+
+
+def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
+                engine_config, stats, device, what: str, exact_mode: str):
+    """Shared prologue of the lane executors: device check, plan, engine,
+    executor, state width and the plan's device arrays."""
+    if exact_mode not in EXACT_MODES:
+        raise ValueError(f"unknown exact_mode {exact_mode!r} for {what}; "
+                         "expected auto | compact | full")
+    _check_device(index, device)
+    plan = compile_queries(index, queries, max_m=max_m, stats=stats)
+    eng = index.engine(backend, engine_config)
+    ex = _executor(index, eng)
+    m_eff, n_states = ex.eff_states(plan, np.arange(plan.n_jobs))
+    if n_states > 32:
+        raise ValueError(
+            f"max_m={m_eff} needs {n_states} subset states; the lane "
+            "executor holds at most 32 (max_m <= 5)")
+    dev = index.device
+    pd = PlanDevice(_to_long(plan.u, dev), _to_long(plan.v, dev),
+                    _to_long(plan.req_labels, dev),
+                    bitset.np_to_words(plan.forb_raw_w, dev),
+                    torch.from_numpy(plan.full_mask).to(dev))
+    return plan, eng, ex, m_eff, n_states, pd
+
+
+def dist_batch(index: TDRIndex,
+               queries: Sequence[tuple[int, int, pat.Pattern]],
+               *, k: int | None = None, max_m: int = 4,
+               exact_chunk: int = 32, backend: str | None = None,
+               exact_mode: str = "auto",
+               engine_config: "engine_mod.EngineConfig | None" = None,
+               stats: QueryStats | None = None,
+               device="cuda") -> np.ndarray:
+    """Shortest pattern-constrained hop distances.  Returns int64
+    [n_queries]; -1 = unreachable (or farther than ``k`` when a k-hop
+    bound is given; the bound also caps the DP at ceil(k/2) rounds).
+
+    Multi-term patterns take the min over terms.  On the ``matmul``
+    backend each chunk runs the per-label-class ``lane_matmul`` core; its
+    class stack is held to the engine's dense cap (over it a card raises
+    ``DenseCapError``, the CPU warns and runs the segment core).
+    ``device`` defaults to the card and must be where ``index`` lives."""
+    t0 = time.perf_counter()
+    stats = stats if stats is not None else QueryStats()
+    plan, eng, ex, m_eff, n_states, pd = _kind_setup(
+        index, queries, max_m=max_m, backend=backend,
+        engine_config=engine_config, stats=stats, device=device,
+        what="dist", exact_mode=exact_mode)
+    stats.n_queries += plan.n_queries
+    stats.n_jobs += plan.n_jobs
+    out = np.full(plan.n_queries, -1, np.int64)
+    if plan.n_jobs == 0:
+        return out
+    dev = index.device
+    best_j = np.full(plan.n_jobs, _DBIG, np.int64)
+    for c0 in range(0, plan.n_jobs, exact_chunk):
+        jobs = np.arange(c0, min(c0 + exact_chunk, plan.n_jobs))
+        real_n = len(jobs)
+        if real_n < exact_chunk:   # pad the chunk with its first job
+            jobs = np.concatenate(
+                [jobs, np.full(exact_chunk - real_n, jobs[0])])
+        ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+        max_rounds = ch.v_p * n_states + 1
+        it_cap = max_rounds if k is None else max(-(-int(k) // 2), 0)
+        jobs_t = _to_long(jobs, dev)
+        req = pd.req_labels[jobs_t][:, :m_eff]
+        frw = pd.forb_raw_w[jobs_t]
+        fm = pd.full_mask[jobs_t]
+        su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
+        best = None
+        if eng.backend == "matmul":
+            special = ex.special_labels(plan, jobs)
+            n_mats = 2 * (len(special) + 1)
+            if eng.dense_fits(
+                    n_mats * ch.v_p * bitset.n_words(ch.v_p) * 4,
+                    f"this chunk's {n_mats} label-class adjacency "
+                    "matrices"):
+                class_label = _to_long(np.asarray(special + (-1,)), dev)
+                if ch.sub_ids is None:
+                    adj_rev = eng.label_class_adjacency(special,
+                                                        reverse=True)
+                    adj_fwd = eng.label_class_adjacency(special,
+                                                        reverse=False)
+                else:
+                    # padding rows duplicate edge 0: the same bit set
+                    # twice, idempotent in a packed bit-matrix
+                    adj_rev, adj_fwd = (
+                        bitset.np_to_words(
+                            engine_mod.pack_label_class_edges_np(
+                                ch.src, ch.dst, ch.lab, ch.v_p, special,
+                                reverse=rev), dev)
+                        for rev in (True, False))
+                best, rounds = _dist_bidi_matmul(
+                    su, sv, req, frw, fm, adj_rev, adj_fwd, class_label,
+                    it_cap, n_states, m_eff, max_rounds)
+        if best is None:
+            best, rounds = _dist_bidi(
+                su, sv, req, frw, fm, _to_long(ch.src, dev),
+                _to_long(ch.dst, dev), _to_long(ch.lab, dev),
+                torch.from_numpy(ch.evalid).to(dev), it_cap, ch.v_p,
+                n_states, m_eff, max_rounds)
+        best_j[jobs[:real_n]] = best.cpu().numpy()[:real_n]
+        stats._round_parts.append(rounds)
+        stats.corridor_active += ch.n_sub
+        stats.corridor_total += index.graph.n_vertices
+    bq = np.full(plan.n_queries, _DBIG, np.int64)
+    np.minimum.at(bq, plan.qid, best_j)
+    reach = bq < _DBIG
+    out[reach] = bq[reach]
+    if k is not None:
+        out[out > int(k)] = -1
+    stats.exact_jobs += plan.n_jobs
+    stats.phase2_s += time.perf_counter() - t0
+    return out
+
+
+def dist(index: TDRIndex, u: int, v: int, p: pat.Pattern, **kw) -> int:
+    """Single-query shortest pattern-constrained distance (hops), -1 if
+    unreachable; a wrapper over ``dist_batch``."""
+    return int(dist_batch(index, [(u, v, p)], **kw)[0])
+
+
+def witness(index: TDRIndex, u: int, v: int, p: pat.Pattern,
+            *, max_m: int = 4, backend: str | None = None,
+            exact_mode: str = "auto",
+            engine_config: "engine_mod.EngineConfig | None" = None,
+            stats: QueryStats | None = None, device="cuda"
+            ) -> list[tuple[int, int, int]] | None:
+    """An actual shortest witness path for a PCR query.
+
+    Returns a list of ``(x, y, label)`` edges chaining u→v whose label set
+    satisfies ``p`` and whose length is the exact shortest
+    pattern-constrained distance; ``[]`` when the empty path answers
+    (u == v and some term requires nothing); ``None`` when unreachable.
+    Every returned path is replayed against the graph through
+    ``dfs_baseline.verify_witness`` before it leaves this function."""
+    plan, eng, ex, m_eff, n_states, pd = _kind_setup(
+        index, [(u, v, p)], max_m=max_m, backend=backend,
+        engine_config=engine_config, stats=stats, device=device,
+        what="witness", exact_mode=exact_mode)
+    if plan.n_jobs == 0:
+        return None
+    dev = index.device
+    jobs = np.arange(plan.n_jobs)
+    ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+    max_rounds = ch.v_p * n_states + 1
+    src_t, dst_t = _to_long(ch.src, dev), _to_long(ch.dst, dev)
+    lab_t = _to_long(ch.lab, dev)
+    ev_t = torch.from_numpy(ch.evalid).to(dev)
+    best_t, best_len, planes = -1, None, []
+    for t in range(plan.n_jobs):
+        dplane, par, _ = _dist_forward_parents(
+            int(ch.su[t]), pd.req_labels[t, :m_eff], pd.forb_raw_w[t],
+            src_t, dst_t, lab_t, ev_t, ch.v_p, n_states, m_eff, max_rounds)
+        planes.append((dplane, par))
+        d_t = int(dplane[int(ch.sv[t]), int(plan.full_mask[t])])
+        if d_t < DIST_INF and (best_len is None or d_t < best_len):
+            best_t, best_len = t, d_t
+    if best_len is None:
+        return None
+    if best_len == 0:
+        return []
+    dn = planes[best_t][0].cpu().numpy().astype(np.int64)
+    pn = planes[best_t][1].cpu().numpy()
+    req = plan.req_labels[best_t]
+    x = int(ch.sv[best_t])
+    state = int(plan.full_mask[best_t])
+    path: list[tuple[int, int, int]] = []
+    while dn[x, state] > 0:
+        e = int(pn[x, state])
+        px, lx = int(ch.src[e]), int(ch.lab[e])
+        shx = 0
+        for i in range(m_eff):
+            if int(req[i]) == lx:
+                shx = 1 << i
+        want = dn[x, state] - 1
+        nxt = None
+        # the pre-edge state dropped the edge's subset bit, or already had
+        # the label; either predecessor one hop closer is valid
+        for so in ([state, state ^ shx] if shx else [state]):
+            if dn[px, so] == want:
+                nxt = so
+                break
+        if nxt is None:
+            raise RuntimeError("witness backtrack: broken parent chain "
+                               f"at vertex {x}, state {state}")
+        path.append((px, x, lx))
+        x, state = px, nxt
+    path.reverse()
+    if ch.sub_ids is not None:   # map compacted ids back to the graph
+        path = [(int(ch.sub_ids[a]), int(ch.sub_ids[b]), l)
+                for (a, b, l) in path]
+    if len(path) != best_len or not dfs_mod.verify_witness(
+            index.graph, u, v, p, path):
+        raise RuntimeError("witness verification failed: extracted path "
+                           "does not replay on the graph")
+    return path
+
+
+def count_routes(index: TDRIndex, u: int, v: int, p: pat.Pattern,
+                 *, hops: int, cap: int = COUNT_CAP, max_m: int = 4,
+                 backend: str | None = None, exact_mode: str = "auto",
+                 engine_config: "engine_mod.EngineConfig | None" = None,
+                 stats: QueryStats | None = None, device="cuda") -> int:
+    """Number of pattern-satisfying u→v walks of length <= ``hops``,
+    saturating at ``cap`` (``semiring.COUNT_CAP`` by default).
+
+    Walks, not simple paths: a cycle counts per traversal, the
+    product-graph DP that ``dfs_baseline.count_routes`` runs.  Single-DNF-
+    term patterns only (terms overlap, so a per-term sum would
+    double-count).  ``cap`` is held to ``E'·cap < 2^32``, the JAX package's
+    bound for its uint32 accumulator, so both refuse the same inputs."""
+    if len(pat.to_dnf(p)) != 1:
+        raise ValueError(
+            f"count_routes needs a single-DNF-term pattern, got "
+            f"{len(pat.to_dnf(p))} terms")
+    plan, eng, ex, m_eff, n_states, pd = _kind_setup(
+        index, [(u, v, p)], max_m=max_m, backend=backend,
+        engine_config=engine_config, stats=stats, device=device,
+        what="count", exact_mode=exact_mode)
+    dev = index.device
+    jobs = np.arange(plan.n_jobs)
+    ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+    if ch.src.shape[0] * cap >= 1 << 32:
+        raise ValueError(
+            f"cap={cap} with {ch.src.shape[0]} edges could wrap the "
+            "uint32 count accumulator; lower the cap")
+    total = _count_forward(
+        _to_long(ch.su, dev), _to_long(ch.sv, dev),
+        pd.req_labels[:, :m_eff], pd.forb_raw_w, pd.full_mask,
+        _to_long(ch.src, dev), _to_long(ch.dst, dev), _to_long(ch.lab, dev),
+        torch.from_numpy(ch.evalid).to(dev), int(hops), ch.v_p, n_states,
+        m_eff, int(cap))
+    return int(total[0])
+
+
+def answer_mixed(index: TDRIndex, queries: Sequence[tuple], *,
+                 hops: int = 8, k: int | None = None,
+                 cap: int = COUNT_CAP, max_m: int = 4,
+                 backend: str | None = None, exact_mode: str = "auto",
+                 engine_config: "engine_mod.EngineConfig | None" = None,
+                 stats: QueryStats | None = None, device="cuda") -> list:
+    """Answer a mixed-kind batch of ``(u, v, pattern[, kind])`` queries.
+
+    Results align with the input order: bool for "bool", int distance (-1
+    unreachable) for "dist", an edge list / [] / None for "witness", and
+    an int for "count" (bounded by ``hops``, clamped at ``cap``).
+    Same-kind queries batch together; "witness"/"count" run per query.
+    Kind "rpq" is a valid kind, but its executor is not ported yet
+    (ROADMAP.md queue A, item 10): a batch holding one raises
+    ``NotImplementedError``."""
+    kinds = [(q[3] if len(q) > 3 else "bool") for q in queries]
+    for kd in kinds:
+        if kd not in QUERY_KINDS:
+            raise ValueError(f"unknown query kind {kd!r}; expected one "
+                             f"of {QUERY_KINDS}")
+    if "rpq" in kinds:
+        raise NotImplementedError(
+            "kind='rpq' needs rpq_batch, which the port does not have yet "
+            "(ROADMAP.md queue A, item 10)")
+    common = dict(max_m=max_m, backend=backend, exact_mode=exact_mode,
+                  engine_config=engine_config, stats=stats, device=device)
+    results: list = [None] * len(queries)
+    bool_ix = [i for i, kd in enumerate(kinds) if kd == "bool"]
+    if bool_ix:
+        ans = answer_batch(index, [queries[i][:3] for i in bool_ix],
+                           **common)
+        for i, a in zip(bool_ix, ans):
+            results[i] = bool(a)
+    dist_ix = [i for i, kd in enumerate(kinds) if kd == "dist"]
+    if dist_ix:
+        ds = dist_batch(index, [queries[i][:3] for i in dist_ix], k=k,
+                        **common)
+        for i, dv in zip(dist_ix, ds):
+            results[i] = int(dv)
+    for i, kd in enumerate(kinds):
+        if kd == "witness":
+            results[i] = witness(index, *queries[i][:3], **common)
+        elif kd == "count":
+            results[i] = count_routes(index, *queries[i][:3], hops=hops,
+                                      cap=cap, **common)
+    return results

@@ -136,3 +136,141 @@ def test_dense_cap_on_the_card_raises(cuda):
     qs = [(u, (u * 7 + 3) % 300, pattern.all_of([0, 1])) for u in range(64)]
     with pytest.raises(engine.DenseCapError):
         tdr_query.answer_batch(idx, qs, engine_config=ecfg)
+
+
+_STORED = {"uint8": np.uint8, "uint16": np.int16, "uint32": np.int32}
+LANE_CASES = [("min", "uint16", 0), ("min", "uint8", 0),
+              ("min", "uint32", 0), ("sum", "uint32", (1 << 15) - 1),
+              ("sum", "uint16", 1000), ("sum", "uint8", 200),
+              ("or", "uint8", 0), ("or", "uint16", 0), ("or", "uint32", 0)]
+
+
+def _lane_pair(a: np.ndarray, dev):
+    """(CPU tensor, card tensor) of the same unsigned lanes, stored."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(_STORED[a.dtype.name]))
+    return t, t.to(dev)
+
+
+def _lane_x(rng, k, w, op, dt, cap):
+    """Lanes with rows at INF, INF-1 and the cap (values <= cap for sum)."""
+    hi = cap if op == "sum" else int(np.iinfo(dt).max)
+    x = rng.integers(0, hi + 1, size=(k, w)).astype(dt)
+    x[0], x[1], x[2] = hi, hi - 1, cap
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,w", [(1, 32, 1), (24, 64, 6), (70, 64, 33),
+                                   (100, 224, 130), (4096, 4096, 128)])
+@pytest.mark.parametrize("op,dt,cap", LANE_CASES)
+def test_lane_matmul_kernel_matches_plain(cuda, m, k, w, op, dt, cap):
+    rng = np.random.default_rng(m + w)
+    density = 0.001 if m >= 4096 else 0.3
+    a_h, a_d = _both(bitset.pack_bits_np(rng.random((m, k)) < density), cuda)
+    x_h, x_d = _lane_pair(_lane_x(rng, k, w, op, dt, cap), cuda)
+    n0 = ops.KERNEL_LAUNCHES["lane_matmul"]
+    got = ops.frontier_step_lanes(a_d, x_d, op=op, cap=cap)
+    assert ops.KERNEL_LAUNCHES["lane_matmul"] == n0 + 1
+    assert got.dtype == x_d.dtype
+    assert torch.equal(got.cpu(), ref.lane_matmul_ref(a_h, x_h, op=op,
+                                                      cap=cap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w", [(1, 1), (77, 9), (600, 3), (33, 40),
+                                 (131072, 8), (4096, 1024)])
+def test_popcount_kernel_matches_plain(cuda, n, w):
+    rng = np.random.default_rng(n)
+    words = _words(rng, n, w)
+    words[0, 0] = 0xFFFFFFFF
+    h, d = _both(words, cuda)
+    n0 = ops.KERNEL_LAUNCHES["popcount_rows"]
+    got = ops.popcount(d)
+    assert ops.KERNEL_LAUNCHES["popcount_rows"] == n0 + 1
+    assert torch.equal(got.cpu(), ref.popcount_rows_ref(h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,kw,w,br,bw,nbits", [
+    (96, 3, 5, 8, 1, 90), (37, 5, 3, 4, 2, 150), (200, 8, 32, 8, 1, 250),
+    (2048, 64, 128, 8, 1, 2048)])
+@pytest.mark.parametrize("op,dt,cap", [("min", "uint16", 0),
+                                       ("sum", "uint32", (1 << 15) - 1),
+                                       ("or", "uint8", 0),
+                                       ("min", "uint8", 0)])
+def test_block_sparse_lane_kernel_matches_plain(cuda, m, kw, w, br, bw,
+                                                nbits, op, dt, cap):
+    rng = np.random.default_rng(m)
+    a = rng.random((m, kw * 32)) < 0.05
+    a[:16] = True                      # ONE blocks
+    a[32:40] = False                   # ZERO strip
+    a[:, nbits:] = False
+    a_p = bitset.pack_bits_np(a)
+    x = _lane_x(rng, nbits, w, op, dt, cap)
+    x[40:72] = int(np.iinfo(dt).max) if op == "min" else 0   # dead block
+    x_h, x_d = _lane_pair(x, cuda)
+    comp_h = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device="cpu")
+    comp_d = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device=cuda)
+    n0 = ops.KERNEL_LAUNCHES["block_sparse_lane_matmul"]
+    got = ops.block_sparse_lane_matmul(comp_d, x_d, op=op, cap=cap)
+    assert ops.KERNEL_LAUNCHES["block_sparse_lane_matmul"] == n0 + 1
+    want = ref.block_sparse_lane_matmul_ref(comp_h, x_h, op=op, cap=cap)
+    assert torch.equal(got.cpu(), want)
+    dense = ref.lane_matmul_ref(
+        bitset.np_to_words(a_p, "cpu"),
+        ref.pad_k_lanes(x_h, kw * 32, op), op=op, cap=cap)
+    assert torch.equal(want, dense)
+
+
+def _kind_queries(rng, n_vertices, n_labels, n):
+    fams = (pattern.all_of, pattern.any_of, pattern.none_of,
+            lambda labs: pattern.lcr(labs, n_labels))
+    return [(int(rng.integers(n_vertices)), int(rng.integers(n_vertices)),
+             fams[i % 4](rng.choice(n_labels, 2, replace=False).tolist()))
+            for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["er", "pa"])
+def test_dist_on_card_matches_segment_and_oracle(cuda, kind):
+    """dist_batch on the card with the default backend (matmul, the
+    lane_matmul core) equals the segment backend and the BFS oracle, in
+    every exact mode, with equal rounds; witness and count_routes on the
+    card equal their oracles."""
+    g = G.random_graph(kind, 300, 3.0, 6, seed=2)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64))
+    qs = _kind_queries(np.random.default_rng(4), 300, 6, 48)
+    want = [dfs_baseline.shortest_pcr(g, u, v, p) for u, v, p in qs]
+    for mode in ("auto", "compact", "full"):
+        ops.KERNEL_LAUNCHES.clear()
+        st, st_s = tdr_query.QueryStats(), tdr_query.QueryStats()
+        got = tdr_query.dist_batch(idx, qs, exact_mode=mode, stats=st)
+        assert ops.KERNEL_LAUNCHES["lane_matmul"] > 0, mode
+        seg = tdr_query.dist_batch(idx, qs, exact_mode=mode, stats=st_s,
+                                   backend="segment")
+        assert got.tolist() == seg.tolist() == want, mode
+        assert st.exact_rounds == st_s.exact_rounds, mode
+    for u, v, p in qs[:8]:
+        path = tdr_query.witness(idx, u, v, p)
+        d = dfs_baseline.shortest_pcr(g, u, v, p)
+        assert (path is None) if d < 0 else len(path) == d
+        if len(pattern.to_dnf(p)) == 1:
+            assert tdr_query.count_routes(idx, u, v, p, hops=5) == \
+                dfs_baseline.count_routes(g, u, v, p, hops=5,
+                                          cap=(1 << 15) - 1)
+
+
+@pytest.mark.gpu
+def test_dist_dense_cap_on_the_card_raises(cuda):
+    """On the card a dist chunk's class stack over the dense cap raises
+    DenseCapError: the lane kernel path never falls back to segment."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=1)
+    adj_bytes = 300 * bitset.n_words(300) * 4
+    ecfg = engine.EngineConfig(max_dense_bytes=adj_bytes)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64),
+                                engine_config=ecfg)
+    qs = [(u, (u * 7 + 3) % 300, pattern.all_of([0, 1])) for u in range(64)]
+    with pytest.raises(engine.DenseCapError):
+        tdr_query.dist_batch(idx, qs, engine_config=ecfg, exact_mode="full")

@@ -16,11 +16,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.convert", "repro_torch.dfs_baseline",
            "repro_torch.engine", "repro_torch.graph", "repro_torch.lcr",
-           "repro_torch.pattern", "repro_torch.tdr_build",
-           "repro_torch.tdr_query", "repro_torch.kernels",
-           "repro_torch.kernels._build", "repro_torch.kernels.bitset_matmul",
-           "repro_torch.kernels.block_sparse", "repro_torch.kernels.ops",
-           "repro_torch.kernels.pattern_filter", "repro_torch.kernels.ref")
+           "repro_torch.pattern", "repro_torch.semiring",
+           "repro_torch.tdr_build", "repro_torch.tdr_query",
+           "repro_torch.kernels", "repro_torch.kernels._build",
+           "repro_torch.kernels.bitset_matmul",
+           "repro_torch.kernels.block_sparse",
+           "repro_torch.kernels.lane_matmul", "repro_torch.kernels.ops",
+           "repro_torch.kernels.pattern_filter",
+           "repro_torch.kernels.popcount", "repro_torch.kernels.ref")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                        r"|from\s+repro(\.|\s)(?!_))", re.M)
 
@@ -73,3 +76,32 @@ def test_engine_constructors_refuse_the_cpu_by_default(ctor):
                  engine.pack_adjacency_np(g))}[ctor]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+def test_every_module_is_checked():
+    """MODULES names every module of the package, so a new one cannot
+    escape the import check."""
+    pkg = ROOT / "src" / "repro_torch"
+    found = {".".join(("repro_torch",) + p.relative_to(pkg).with_suffix(
+        "").parts).removesuffix(".__init__") for p in pkg.rglob("*.py")}
+    assert found == set(MODULES)
+
+
+@pytest.mark.parametrize("entry", ["dist_batch", "witness", "count_routes",
+                                   "answer_mixed"])
+def test_kind_entry_points_refuse_the_cpu_by_default(entry):
+    """The semiring query kinds default to the card, as answer_batch."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
+                                device="cpu")
+    p = pattern.all_of([0])
+    call = {"dist_batch": lambda: tdr_query.dist_batch(idx, [(0, 1, p)]),
+            "witness": lambda: tdr_query.witness(idx, 0, 1, p),
+            "count_routes": lambda: tdr_query.count_routes(idx, 0, 1, p,
+                                                           hops=3),
+            "answer_mixed": lambda: tdr_query.answer_mixed(
+                idx, [(0, 1, p, "dist")])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

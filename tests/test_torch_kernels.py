@@ -154,3 +154,110 @@ def test_block_sparse_plain_matches_reference(m, kw, w, br, bw, nbits):
         jnp.asarray(a), jnp.asarray(np.pad(x, ((0, kw * 32 - nbits),
                                                (0, 0))))))
     np.testing.assert_array_equal(got, dense)
+
+
+# ---------------------------------------------------------------- B4
+# (m, k, w): the reference's test shape and ragged ones (k off the word
+# grid, w off every tile)
+B4_SHAPES = [(24, 37, 6), (70, 64, 33), (1, 32, 1), (130, 200, 7)]
+# (op, lane dtype, cap): every op at every lane width the semirings use
+B4_CASES = [("min", "uint16", 0), ("min", "uint8", 0),
+            ("sum", "uint32", (1 << 15) - 1), ("sum", "uint16", 1000),
+            ("or", "uint8", 0), ("or", "uint32", 0)]
+_STORED = {"uint8": np.uint8, "uint16": np.int16, "uint32": np.int32}
+
+
+def _lanes(a: np.ndarray) -> torch.Tensor:
+    """numpy unsigned lanes -> the port's stored lanes (same bits)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(
+        _STORED[a.dtype.name]))
+
+
+def _lane_inputs(m, k, w, op, dt, cap, seed):
+    """A with ~30% bits; X lanes with rows at INF, INF-1 and the cap."""
+    rng = np.random.default_rng(seed)
+    a = rbitset.pack_bits_np(rng.random((m, k)) < 0.3)
+    hi = cap if op == "sum" else int(np.iinfo(dt).max)
+    x = rng.integers(0, hi + 1, size=(k, w)).astype(dt)
+    x[0] = hi
+    if k > 2:
+        x[1], x[2] = hi - 1, cap
+    return a, x
+
+
+@pytest.mark.parametrize("m,k,w", B4_SHAPES)
+@pytest.mark.parametrize("op,dt,cap", B4_CASES)
+def test_lane_matmul_plain_matches_reference(m, k, w, op, dt, cap):
+    a, x = _lane_inputs(m, k, w, op, dt, cap, seed=m + k + w)
+    xp = np.pad(x, ((0, a.shape[1] * 32 - k), (0, 0)))
+    got = ops.frontier_step_lanes(_t(a), _lanes(xp), op=op, cap=cap)
+    assert got.dtype == _lanes(xp).dtype
+    got = got.numpy().view(dt)
+    args = (jnp.asarray(a), jnp.asarray(xp))
+    np.testing.assert_array_equal(got, np.asarray(rops.frontier_step_lanes(
+        *args, op=op, cap=cap, mode="ref")))
+    if (m, k, w) == (24, 37, 6):
+        np.testing.assert_array_equal(got, np.asarray(
+            rops.frontier_step_lanes(*args, op=op, cap=cap,
+                                     mode="interpret")))
+
+
+def test_lane_matmul_rejects_bad_operands():
+    a = _t(rbitset.pack_bits_np(np.ones((2, 32), bool)))
+    with pytest.raises(ValueError, match="lane op"):
+        ops.frontier_step_lanes(a, torch.zeros((32, 1), dtype=torch.int16),
+                                op="max")
+    with pytest.raises(ValueError, match="shape"):
+        ops.frontier_step_lanes(a, torch.zeros((31, 1), dtype=torch.int16),
+                                op="min")
+
+
+# ---------------------------------------------------------------- B5
+@pytest.mark.parametrize("n,w", [(1, 1), (77, 9), (600, 3), (33, 40)])
+def test_popcount_plain_matches_reference(n, w):
+    x = np.random.default_rng(n).integers(0, 2 ** 32, (n, w),
+                                          dtype=np.uint32)
+    x[0, 0] = 0xFFFFFFFF                   # every bit, bit 31 included
+    got = ops.popcount(_t(x))
+    assert got.dtype == torch.int32
+    want = np.asarray(rops.popcount(jnp.asarray(x), mode="ref"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        rops.popcount(jnp.asarray(x), mode="interpret")))
+    expect = np.array([bin(int(v)).count("1") for row in x for v in row]
+                      ).reshape(n, w).sum(-1)
+    np.testing.assert_array_equal(got.numpy(), expect)
+
+
+# ---------------------------------------------------------------- B6
+# each op on two block grids; the bw = 2 grid also runs the Pallas kernel
+B6_CASES = [(op, shape) for op, i in (("min", (0, 2)), ("sum", (1, 2)),
+                                      ("or", (3, 2)))
+            for shape in (B3_SHAPES[i[0]], B3_SHAPES[i[1]])]
+_B6_LANES = {"min": ("uint16", 0), "sum": ("uint32", (1 << 15) - 1),
+             "or": ("uint8", 0)}
+
+
+@pytest.mark.parametrize("op,shape", B6_CASES)
+def test_block_sparse_lane_plain_matches_reference(op, shape):
+    m, kw, w, br, bw, nbits = shape
+    dt, cap = _B6_LANES[op]
+    a, _ = _b3_inputs(m, kw, w, nbits, seed=m + kw)
+    _, x = _lane_inputs(nbits, nbits, w, op, dt, cap, seed=m + w)
+    ident = int(np.iinfo(dt).max) if op == "min" else 0
+    x[40:72] = ident                       # a dead k-block
+    comp = compressed.compress_blocks(a, br=br, bw=bw, nbits=nbits,
+                                      device="cpu")
+    rc = rcomp.compress_blocks(a, br=br, bw=bw, nbits=nbits)
+    got = ops.block_sparse_lane_matmul(comp, _lanes(x), op=op, cap=cap)
+    got = got.numpy().view(dt)
+    np.testing.assert_array_equal(got, np.asarray(
+        rbs.block_sparse_lane_matmul_ref(rc, jnp.asarray(x), op=op,
+                                         cap=cap)))
+    xp = np.pad(x, ((0, kw * 32 - nbits), (0, 0)))
+    dense = ops.frontier_step_lanes(_t(a), _lanes(xp), op=op, cap=cap)
+    np.testing.assert_array_equal(got, dense.numpy().view(dt))
+    if bw > 1:
+        np.testing.assert_array_equal(got, np.asarray(
+            rbs.block_sparse_lane_matmul(rc, jnp.asarray(x), op=op, cap=cap,
+                                         interpret=True)))
