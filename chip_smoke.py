@@ -16,9 +16,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    that the kernel checks below use its real operands.
 2. Each kernel against its plain PyTorch version at the main path's
    shapes (bit-equal, tolerance 0): ``bitset_matmul`` on the real forward
-   adjacency with W = 8, 2 and 32, ``way_filter`` on the run's gathered
-   phase-1 inputs, ``block_sparse_matmul`` on the real block-compressed
-   adjacency with the first closure frontier.  Times are medians of CUDA
+   adjacency with W = 8, 2 and 32; ``way_filter`` through the fused entry
+   ``ops.filter_ways_at`` on the run's own plan (``u``, ``v``, required
+   and forbidden rows) and the index planes, and through ``filter_ways``
+   on the same rows gathered; ``block_sparse_matmul`` on the real
+   block-compressed adjacency at two frontiers of the build's own
+   closures, the first (``base_v``) and the late delta frontier with the
+   fewest live k-blocks (recorded by a spy on ``ops.frontier_step_sparse``
+   during the main path's build), each also against dense
+   ``bitset_matmul`` on the same adjacency.  Times are medians of CUDA
    event timings after a warm-up.
 3. Cross-checks: the same graph built and answered with
    ``backend="segment"`` (plain torch, no kernels) gives identical planes,
@@ -191,12 +197,21 @@ def main() -> int:
           f"{len(queries)} queries")
 
     # ---- 1. main path ---------------------------------------------------
+    sparse_fn = ops.frontier_step_sparse
+    sparse_calls = []
+
+    def sparse_spy(comp, x):   # observes one call's operands; computes nothing
+        sparse_calls.append((comp, x))
+        return sparse_fn(comp, x)
+
     torch.cuda.synchronize()
+    ops.frontier_step_sparse = sparse_spy
     ops.KERNEL_LAUNCHES.clear()
     t0 = time.perf_counter()
     idx = tdr_build.build_index(g, cfg)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    ops.frontier_step_sparse = sparse_fn
     mem_after_build = torch.cuda.memory_allocated()
     stats = tdr_query.QueryStats()
     t0 = time.perf_counter()
@@ -252,6 +267,9 @@ def main() -> int:
         return err == 0
 
     ok = True
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(f"single-launch floor (one 4-byte zero_, same timing): "
+          f"{time_ms(torch, one.zero_, KERNEL_REPS):.4f} ms")
     adj = eng.adjacency()                                  # [V, V/32]
     m, kw = adj.shape
     a_bits = int(np.unique(g.src.astype(np.int64) * g.n_vertices
@@ -281,44 +299,95 @@ def main() -> int:
     plan_p = plan.pad_to(graph.pad_bucket(plan.n_jobs, lo=16))
     u = torch.from_numpy(plan_p.u.astype(np.int64)).to(dev)
     v = torch.from_numpy(plan_p.v.astype(np.int64)).to(dev)
+    rfn = [bitset.np_to_words(a, dev) for a in (
+        plan_p.req_w, plan_p.forb_w, tdr_build._null_words(cfg))]
+    fat = (u, v, *rfn, idx.vtx_packed, idx.h_vtx, idx.h_lab, idx.v_vtx,
+           idx.v_lab)
     fargs = (idx.h_vtx[u], idx.h_lab[u], idx.v_vtx[u], idx.v_lab[u],
-             idx.vtx_packed[v], bitset.np_to_words(plan_p.req_w, dev),
-             bitset.np_to_words(plan_p.forb_w, dev),
-             bitset.np_to_words(tdr_build._null_words(cfg), dev))
+             idx.vtx_packed[v], *rfn)
     j, gw = fargs[0].shape[:2]
+    fused = ops.filter_ways_at(*fat)
+    gathered_err = max(words_err(torch, ops.filter_ways(*fargs), fused),
+                       words_err(torch, ref.way_filter_ref(*fargs), fused))
+    n_u, n_v = int(u.unique().numel()), int(v.unique().numel())
+    way_row_words = sum(t[0].numel() for t in fat[6:])  # one u's plane rows
+    print(f"way_filter: {j} jobs x {gw} ways, {n_u} distinct u, {n_v} "
+          f"distinct v; max_abs_err of filter_ways on the gathered rows "
+          f"{gathered_err}; {int(fused.sum())} viable ways")
+    ok &= gathered_err == 0
     ok &= record(
         "way_filter", "src/repro_torch/kernels/csrc/way_filter.cu",
         "src/repro/kernels/pattern_filter.py:29",
-        ops.filter_ways(*fargs), ref.way_filter_ref(*fargs),
-        lambda: ops.filter_ways(*fargs), lambda: ref.way_filter_ref(*fargs),
-        sum(t.numel() for t in fargs) * 4 + j * gw,
-        sum(t.numel() for t in fargs[:4]) * 2)
+        fused, ref.way_filter_at_ref(*fat),
+        lambda: ops.filter_ways_at(*fat),
+        lambda: ref.way_filter_at_ref(*fat),
+        n_u * way_row_words * 4 + n_v * idx.vtx_packed.shape[1] * 4
+        + j * 8 * 2 + sum(t.numel() for t in rfn) * 4 + j * gw,
+        j * way_row_words * 2)
 
-    comp = eng.block_adjacency()
-    x = idx.base_v                                  # first closure frontier
-    colr, xany = ref.k_block_summaries(x, comp.grid[1], comp.bw * 32)
-    live = (comp.states != 0) & (xany != 0)[None, :]
-    n_live = int(live.sum())
-    n_mixed_live = int((live & (comp.states == 2)).sum())
-    live_k = int((xany != 0).sum())
-    w = x.shape[1]
-    bk = comp.bw * 32
-    x_unp = bitset.unpack_bits(ref.pad_k(x, kw * 32), w * 32).to(
-        torch.bfloat16)
-    bs_bytes = (comp.states.numel() + n_live * 4
-                + n_mixed_live * comp.br * comp.bw * 4
-                + comp.grid[1] * (1 + w) * 4 + live_k * bk * w * 4
-                + comp.grid[0] * comp.br * w * 4)
-    ok &= record(
-        "block_sparse_matmul", "src/repro_torch/kernels/csrc/block_sparse.cu",
-        "src/repro/kernels/block_sparse.py:55",
-        ops.frontier_step_sparse(comp, x),
-        ref.block_sparse_matmul_ref(comp, x),
-        lambda: ops.frontier_step_sparse(comp, x),
-        lambda: ref.block_sparse_matmul_ref(comp, x),
-        bs_bytes, comp.states.numel() + 2 * g.n_edges * w,
-        lambda: torch.matmul(a_unp, x_unp))
-    del a_unp, x_unp
+    # B3 at the first closure frontier and at the build's late delta
+    # frontier with the fewest live k-blocks (ties: the later call)
+    comp_f = eng.block_adjacency()
+    kb, bk = comp_f.grid[1], comp_f.bw * 32
+    live_ks = [int(ref.k_block_summaries(x, c.grid[1], c.bw * 32)[1].sum())
+               for c, x in sparse_calls]
+    late = min((n, -i) for i, n in enumerate(live_ks) if n > 0)
+    late_i = -late[1]
+    print(f"block_sparse_matmul: {len(sparse_calls)} main-path calls, live "
+          f"k-blocks per call {live_ks}; late frontier = call {late_i}")
+    frontiers = [("first", comp_f, idx.base_v),
+                 ("late", *sparse_calls[late_i])]
+    for label, bcomp, x in frontiers:
+        rev = bcomp is eng.block_adjacency(reverse=True)
+        adj_c = eng.adjacency(reverse=rev)
+        xany = ref.k_block_summaries(x, kb, bk)[1] != 0
+        mix_live = xany[bcomp.mix_bj[:bcomp.n_mixed].long()]
+        one_live = xany[bcomp.one_bj.long()]
+        n_mixed_live, n_one_live = int(mix_live.sum()), int(one_live.sum())
+        live_bits = int(bitset.popcount(
+            bcomp.pool[:bcomp.n_mixed][mix_live].reshape(-1, 1)).sum())
+        w = x.shape[1]
+        out_bytes = bcomp.shape[0] * w * 4
+        # least bytes: X once, the live lists (offsets and every entry's
+        # k-block id), the live MIXED pool blocks, the output
+        bs_bytes = (x.numel() * 4 + 2 * (bcomp.grid[0] + 1) * 4
+                    + (bcomp.n_mixed + bcomp.one_bj.numel()) * 4
+                    + n_mixed_live * bcomp.br * bcomp.bw * 4 + out_bytes)
+        # the count over the state grid in place of the lists (the
+        # earlier kernel's bound)
+        grid_bytes = (bcomp.states.numel() + (n_mixed_live + n_one_live) * 4
+                      + n_mixed_live * bcomp.br * bcomp.bw * 4
+                      + kb * (1 + w) * 4 + int(xany.sum()) * bk * w * 4
+                      + bcomp.grid[0] * bcomp.br * w * 4)
+        got = ops.frontier_step_sparse(bcomp, x)
+        err = max(words_err(torch, got, ref.block_sparse_matmul_ref(bcomp, x)),
+                  words_err(torch, got, ops.frontier_step(
+                      adj_c, ref.pad_k(x, kw * 32).contiguous())))
+        a_unp_c = a_unp if not rev else bitset.unpack_bits(
+            adj_c, kw * 32).to(torch.bfloat16)
+        x_unp = bitset.unpack_bits(ref.pad_k(x, kw * 32), w * 32).to(
+            torch.bfloat16)
+        print(f"block_sparse_matmul[{label}]: {'reverse' if rev else 'forward'}"
+              f" adjacency, X {tuple(x.shape)}, {int(xany.sum())} of {kb} "
+              f"k-blocks live, {n_mixed_live} of {bcomp.n_mixed} MIXED and "
+              f"{n_one_live} of {bcomp.one_bj.numel()} ONE blocks live, "
+              f"{live_bits} live set bits; bound counted over the state grid "
+              f"{grid_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        ok &= record(
+            f"block_sparse_matmul[{label}]",
+            "src/repro_torch/kernels/csrc/block_sparse.cu",
+            "src/repro/kernels/block_sparse.py:55", got, got,
+            lambda bcomp=bcomp, x=x: ops.frontier_step_sparse(bcomp, x),
+            lambda bcomp=bcomp, x=x: ref.block_sparse_matmul_ref(bcomp, x),
+            bs_bytes, x.numel() + live_bits * w + n_one_live * bcomp.br * w,
+            lambda a=a_unp_c, xu=x_unp: torch.matmul(a, xu), err=err)
+        _, _, top = profile(torch, lambda bcomp=bcomp, x=x: [
+            ops.frontier_step_sparse(bcomp, x) for _ in range(KERNEL_REPS)])
+        print(f"block_sparse_matmul[{label}] profiled: " + "; ".join(
+            f"{k} {1e3 * ms / n:.4f} us x{n}" for k, ms, n in top))
+        del a_unp_c, x_unp
+    comp = comp_f
+    del a_unp
     if not ok:
         return fail("a kernel disagrees with its plain version")
 

@@ -9,7 +9,10 @@ level-1 row states as the ``sat_out``/``sat_in`` summary flags.
 ``(row-block × word-block)`` state grid over a packed bit-matrix plus a
 compacted pool of the MIXED blocks, with its fields as torch tensors on
 the engine's device (packed words as int32).  The layout is the JAX
-package's, so states, slots and pool compare equal across the two.
+package's, so states, slots and pool compare equal across the two.  It
+also carries the live lists the CUDA kernel walks in place of the state
+grid: per row-block offsets into the MIXED list (whose position is the
+pool slot) and into a list of the ONE blocks' word-blocks.
 """
 from __future__ import annotations
 
@@ -112,6 +115,11 @@ class BlockCompressed:
     mix_bi: torch.Tensor         # int32 [P] row-block of pool slot (MB = pad)
     mix_bj: torch.Tensor         # int32 [P] word-block of pool slot
     n_mixed: int                 # live pool slots (<= P, rest padding)
+    mix_off: torch.Tensor        # int32 [MB + 1] row-block offsets into
+    #                              the MIXED list (entry = pool slot)
+    one_off: torch.Tensor        # int32 [MB + 1] row-block offsets into one_bj
+    one_bj: torch.Tensor         # int32 [n_one] word-block of each ONE block,
+    #                              row-block-major
 
     @property
     def grid(self) -> tuple:
@@ -157,11 +165,21 @@ def compress_blocks(a_packed: np.ndarray, *, br: int = 8, bw: int = 1,
     mix_bi = np.concatenate([bi.astype(np.int32), pad_i])
     mix_bj = np.concatenate([bj.astype(np.int32),
                              np.zeros(p - n_mixed, np.int32)])
+    states_t = torch.from_numpy(states).to(device)
+    mix_bi_t = torch.from_numpy(mix_bi).to(device)
+    one_bi, one_bj = torch.nonzero(states_t == ALL_ONE, as_tuple=True)
     return BlockCompressed(
-        shape=(m, kw), nbits=nbits, br=br, bw=bw,
-        states=torch.from_numpy(states).to(device),
+        shape=(m, kw), nbits=nbits, br=br, bw=bw, states=states_t,
         slots=torch.from_numpy(slots).to(device),
         pool=torch.from_numpy(pool.view(np.int32)).to(device),
-        mix_bi=torch.from_numpy(mix_bi).to(device),
-        mix_bj=torch.from_numpy(mix_bj).to(device),
-        n_mixed=n_mixed)
+        mix_bi=mix_bi_t, mix_bj=torch.from_numpy(mix_bj).to(device),
+        n_mixed=n_mixed, mix_off=_row_offsets(mix_bi_t[:n_mixed], mb),
+        one_off=_row_offsets(one_bi, mb), one_bj=one_bj.to(torch.int32))
+
+
+def _row_offsets(bi: torch.Tensor, mb: int) -> torch.Tensor:
+    """int32 ``[mb + 1]`` offsets of each row-block's run in a list whose
+    row-block ids ``bi`` are sorted (``np.nonzero`` order)."""
+    off = torch.zeros(mb + 1, dtype=torch.int32, device=bi.device)
+    off[1:] = torch.cumsum(torch.bincount(bi.long(), minlength=mb), 0)
+    return off

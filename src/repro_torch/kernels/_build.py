@@ -40,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _ARGTYPES = {
     "tdr_bitset_matmul": [_P, _P, _P, _I, _I, _I, _P],
-    "tdr_way_filter": [_P] * 9 + [_I] * 5 + [_P],
-    "tdr_block_sparse_matmul": [_P] * 7 + [_I] * 6 + [_P],
+    "tdr_way_filter": [_P] * 11 + [_I] * 8 + [_P],
+    "tdr_block_sparse_matmul": [_P] * 8 + [_I] * 11 + [_P],
     "tdr_lane_matmul": [_P, _P, _P] + [_I] * 5 + [_U, _P],
     "tdr_block_sparse_lane_matmul": [_P] * 7 + [_I] * 8 + [_U, _P],
     "tdr_popcount_rows": [_P, _P, _I, _I, _P],

@@ -16,7 +16,7 @@ from .bitset_matmul import cuda_bitset_matmul
 from .block_sparse import (block_sparse_lane_matmul,  # noqa: F401
                            cuda_block_sparse_matmul)
 from .lane_matmul import cuda_lane_matmul
-from .pattern_filter import cuda_way_filter
+from .pattern_filter import cuda_way_filter, cuda_way_filter_at
 from .popcount import cuda_popcount_rows
 from ..compressed import BlockCompressed
 
@@ -48,12 +48,26 @@ def frontier_step_sparse(comp: BlockCompressed,
 
 def filter_ways(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
                 null_plane) -> torch.Tensor:
-    """Fused per-(job, way) viability predicate -> bool [J, G]."""
+    """Fused per-(job, way) viability predicate -> bool [J, G], on rows
+    already gathered per job."""
     if h_vtx.is_cuda:
         return cuda_way_filter(*(t.contiguous() for t in (
             h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb, null_plane)))
     return ref.way_filter_ref(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb,
                               null_plane)
+
+
+def filter_ways_at(u, v, req, forb, null_plane, vtx_packed, h_vtx, h_lab,
+                   v_vtx, v_lab) -> torch.Tensor:
+    """``filter_ways`` on the index planes themselves: job ``j`` reads the
+    rows of ``u[j]`` and the target bits ``vtx_packed[v[j]]``.  On a card
+    the kernel gathers the rows; nothing ``[J, G, ...]`` is built."""
+    if h_vtx.is_cuda:
+        return cuda_way_filter_at(*(t.contiguous() for t in (
+            u, v, req, forb, null_plane, vtx_packed, h_vtx, h_lab, v_vtx,
+            v_lab)))
+    return ref.way_filter_at_ref(u, v, req, forb, null_plane, vtx_packed,
+                                 h_vtx, h_lab, v_vtx, v_lab)
 
 
 def popcount(words: torch.Tensor) -> torch.Tensor:

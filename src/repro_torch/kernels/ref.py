@@ -65,6 +65,14 @@ def way_filter_ref(h_vtx, h_lab, v_vtx, v_lab, vbits, req, forb, null_plane):
     return has_tgt & has_req & ~refuted
 
 
+def way_filter_at_ref(u, v, req, forb, null_plane, vtx_packed, h_vtx, h_lab,
+                      v_vtx, v_lab):
+    """``way_filter_ref`` on the index rows of the job endpoints: gather
+    ``u``'s plane rows and ``v``'s target bits, then filter."""
+    return way_filter_ref(h_vtx[u], h_lab[u], v_vtx[u], v_lab[u],
+                          vtx_packed[v], req, forb, null_plane)
+
+
 def pad_k(x: torch.Tensor, k_pad: int) -> torch.Tensor:
     """Zero-pad the row axis of ``x`` up to ``k_pad`` rows."""
     if x.shape[0] < k_pad:

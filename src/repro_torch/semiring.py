@@ -121,10 +121,12 @@ class Semiring:
             raise ValueError(f"{self.name}: inf only defined for min")
         return self.zero
 
-    def init(self, shape, device="cpu") -> torch.Tensor:
-        """A stored plane of (+)-identities."""
+    def init(self, shape, device="cuda") -> torch.Tensor:
+        """A stored plane of (+)-identities, on the card unless the caller
+        passes ``device="cpu"``."""
         return narrow(torch.full(shape, self.zero, dtype=torch.int64,
-                                 device=device), self.bits)
+                                 device=bitset.resolve_device(device)),
+                      self.bits)
 
     # -- algebra (stored lanes in, stored lanes out) -----------------------
     def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ Phase 1 — *filter cascade* (index math only, ``_filter_cascade``):
 ``u == v`` with no required label is TRUE; a Bloom miss in ``N_out(u)`` or
 ``N_in(v)`` is FALSE; a DFS-interval ancestor with an unconstrained term is
 TRUE; the per-way group predicate (the ``way_filter`` kernel through
-``kernels.ops.filter_ways``) refutes the rest or leaves them UNKNOWN.
+``kernels.ops.filter_ways_at``, which reads the index rows itself)
+refutes the rest or leaves them UNKNOWN.
 
 Phase 2 — *corridor-compacted bidirectional expansion* for the UNKNOWN
 jobs, in chunks of ``exact_chunk`` jobs.  A chunk whose Bloom corridor
@@ -309,8 +310,8 @@ def _filter_cascade(u, v, req_w, forb_w, null_w, vtx_packed, h_vtx, h_lab,
     true_anc = anc & req_empty & forb_empty & ~same
 
     # per-way group pruning (the way_filter kernel on a card)
-    way_ok = ops.filter_ways(h_vtx[u], h_lab[u], v_vtx[u], v_lab[u],
-                             vbits, req_w, forb_w, null_w)
+    way_ok = ops.filter_ways_at(u, v, req_w, forb_w, null_w, vtx_packed,
+                                h_vtx, h_lab, v_vtx, v_lab)
     any_way = way_ok.any(dim=-1)
 
     maybe = topo_maybe & (any_way | same)

@@ -5,6 +5,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import (compressed as rcomp, engine as reng, graph as RG,
                         tdr_build as RB)
@@ -103,6 +104,48 @@ def test_generators_and_operands_match_reference(kind, n, seed):
                                          special),
         reng.pack_label_class_edges_np(rg.src, rg.indices, rg.labels, n,
                                        special))
+
+
+def _live_list_walk(comp):
+    """(bi, bj, slot) of every MIXED entry and (bi, bj) of every ONE entry,
+    walked row-block by row-block through the offsets."""
+    mix_off, one_off = comp.mix_off.tolist(), comp.one_off.tolist()
+    mix_bj, one_bj = comp.mix_bj.tolist(), comp.one_bj.tolist()
+    mixed = [(bi, mix_bj[s], s) for bi in range(comp.grid[0])
+             for s in range(mix_off[bi], mix_off[bi + 1])]
+    ones = [(bi, one_bj[e]) for bi in range(comp.grid[0])
+            for e in range(one_off[bi], one_off[bi + 1])]
+    return mixed, ones
+
+
+@pytest.mark.parametrize("kind,n,seed", GRAPHS + [("ones", 70, 0)])
+@pytest.mark.parametrize("br,bw", [(8, 1), (4, 2), (16, 1)])
+def test_block_live_lists_walk_the_states(kind, n, seed, br, bw):
+    """Walking ``mix_off``/``mix_bj`` and ``one_off``/``one_bj`` row by row
+    gives exactly the blocks whose state is MIXED (resp. ONE), in order,
+    and each MIXED entry's position is its slot.  ``n`` leaves ragged row
+    and column tails at every block shape; "ones" adds ONE blocks."""
+    if kind == "ones":
+        bits = np.random.default_rng(seed).random((n, n)) < 0.05
+        bits[:24] = True
+        bits[40:56, 32:64] = True
+        a = bitset.pack_bits_np(bits)
+    else:
+        a = engine.pack_adjacency_np(_port_graph(kind, n, seed))
+    comp = compressed.compress_blocks(a, br=br, bw=bw, nbits=n, device="cpu")
+    states = comp.states.numpy()
+    mixed, ones = _live_list_walk(comp)
+    mi, mj = np.nonzero(states == compressed.MIXED)
+    assert [(bi, bj) for bi, bj, _ in mixed] == list(zip(mi.tolist(),
+                                                         mj.tolist()))
+    assert [s for _, _, s in mixed] == list(range(comp.n_mixed))
+    assert all(comp.slots[bi, bj] == s for bi, bj, s in mixed)
+    oi, oj = np.nonzero(states == compressed.ALL_ONE)
+    assert ones == list(zip(oi.tolist(), oj.tolist()))
+    if kind == "ones":
+        assert ones and mixed
+    for f in ("mix_off", "one_off", "one_bj"):
+        assert getattr(comp, f).dtype == torch.int32, f
 
 
 def test_compress_matches_reference():

@@ -90,6 +90,107 @@ def test_block_sparse_kernel_matches_plain(cuda, m, kw, w, br, bw, nbits):
     assert torch.equal(want, dense)
 
 
+def _dense_words(rng, *shape, ors=1, ands=1):
+    w = _words(rng, *shape)
+    for _ in range(ors - 1):
+        w |= _words(rng, *shape)
+    for _ in range(ands - 1):
+        w &= _words(rng, *shape)
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j,g,k,wv,wl", [(37, 3, 3, 8, 2), (5, 4, 1, 1, 1),
+                                         (100, 4, 3, 3, 2), (1, 1, 4, 4, 2),
+                                         (768, 4, 3, 8, 2)])
+def test_way_filter_at_kernel_matches_plain(cuda, j, g, k, wv, wl):
+    """The fused entry gathers the index rows itself: repeated ``u``, a
+    padding job (vertex 0, empty pattern) and J·G off the block size."""
+    rng = np.random.default_rng(j + wv)
+    n = 50
+    npl = np.zeros(wl, np.uint32)
+    npl[-1] = 1 << 31
+    planes = [_dense_words(rng, n, wv, ands=4),
+              _dense_words(rng, n, g, wv, ors=3),
+              _dense_words(rng, n, g, wl, ors=3),
+              _dense_words(rng, n, g, k, wv, ors=3),
+              _dense_words(rng, n, g, k, wl, ands=3)]
+    u, v = rng.integers(0, n, j), rng.integers(0, n, j)
+    u[: j // 2] = u[0]
+    rq = _dense_words(rng, j, wl, ands=3)
+    fb = _dense_words(rng, j, wl, ors=2)
+    u[-1] = v[-1] = 0
+    rq[-1] = fb[-1] = 0
+    words = [_both(a, cuda) for a in [rq, fb, npl] + planes]
+    idx = [(torch.from_numpy(a), torch.from_numpy(a).to(cuda)) for a in (u, v)]
+    n0 = ops.KERNEL_LAUNCHES["way_filter"]
+    got = ops.filter_ways_at(*(d for _, d in idx + words))
+    assert ops.KERNEL_LAUNCHES["way_filter"] == n0 + 1
+    assert got.dtype == torch.bool and got.shape == (j, g)
+    assert torch.equal(got.cpu(), ref.way_filter_at_ref(
+        *(h for h, _ in idx + words)))
+
+
+def _b3_operand(m, kw, br, bw, nbits, w, frontier, dev):
+    """(A packed, CPU and card operands, X on both) for one B3 case."""
+    rng = np.random.default_rng(m + kw + w)
+    a = rng.random((m, kw * 32)) < 0.05
+    if frontier != "no_one":
+        a[:16] = True                  # ONE blocks
+    a[32:40] = False                   # ZERO strip
+    if frontier == "one_rows":         # row-blocks full of ONE blocks
+        a[: min(m, 48)] = True
+    a[:, nbits:] = False
+    a_p = bitset.pack_bits_np(a)
+    x = _words(rng, nbits, w)
+    x[:40] = 0                         # a dead leading k-block
+    if frontier == "empty":
+        x[:] = 0
+    elif frontier == "single":         # one live k-block, one set word
+        x[:] = 0
+        x[min(nbits - 1, bw * 32 + 3), w // 2] = 0x80000001
+    comp_h = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device="cpu")
+    comp_d = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device=dev)
+    x_h, x_d = _both(x, dev)
+    if frontier == "unaligned":        # X 4 bytes off a 16-byte boundary
+        x_d = torch.cat([x_d.new_zeros(w + 1), x_d.reshape(-1)])[1:]
+        x_d = x_d[w:].reshape(nbits, w)
+        assert x_d.data_ptr() % 16 and x_d.is_contiguous()
+    return a_p, comp_h, comp_d, x_h, x_d
+
+
+# W = 136 and 133 take two and three W tiles (133 with scalar loads)
+B3_GRID = [(br, bw, w) for br in (4, 8, 16) for bw in (1, 2)
+           for w in (1, 2, 8, 32)] + [(8, 1, 136), (16, 2, 133)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br,bw,w", B3_GRID)
+@pytest.mark.parametrize("frontier", ["dense", "no_one", "empty", "single",
+                                      "one_rows", "unaligned"])
+def test_block_sparse_live_list_kernel(cuda, br, bw, w, frontier):
+    """The live-list kernel on ragged row and column tails (``nbits`` off
+    every ``32·bw``), with and without ONE blocks (the column-OR pre-pass
+    runs only with them): bit-equal to the plain version and to dense B1,
+    one counted launch per call."""
+    m, kw, nbits = 203, 7, 210
+    a_p, comp_h, comp_d, x_h, x_d = _b3_operand(m, kw, br, bw, nbits, w,
+                                                frontier, cuda)
+    n0 = ops.KERNEL_LAUNCHES["block_sparse_matmul"]
+    got = ops.frontier_step_sparse(comp_d, x_d)
+    assert ops.KERNEL_LAUNCHES["block_sparse_matmul"] == n0 + 1
+    want = ref.block_sparse_matmul_ref(comp_h, x_h)
+    assert torch.equal(got.cpu(), want)
+    dense = ref.bitset_matmul_ref(bitset.np_to_words(a_p, "cpu"),
+                                  ref.pad_k(x_h, kw * 32))
+    assert torch.equal(want, dense)
+    if frontier == "empty":
+        assert not want.any()
+    assert (comp_h.one_bj.numel() == 0) == (frontier == "no_one")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["er", "pa"])
 def test_main_path_on_card_matches_segment_and_oracle(cuda, kind):

@@ -132,6 +132,52 @@ def test_way_filter_plain_matches_reference(j, g, k, wv, wl):
         got, np.asarray(rops.filter_ways(*rargs, mode="interpret")))
 
 
+def _b2_plane_inputs(n, j, g, k, wv, wl, seed):
+    """Index planes over ``n`` vertices, dense enough (and target bits
+    sparse enough) that ways both pass and fail; job endpoints with a
+    repeated ``u`` and a padding job (vertex 0, empty pattern) last."""
+    rng = np.random.default_rng(seed)
+
+    def words(*shape, ors=1, ands=1):
+        w = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+        for _ in range(ors - 1):
+            w |= rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+        for _ in range(ands - 1):
+            w &= rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+        return w
+
+    npl = np.zeros(wl, np.uint32)
+    npl[-1] = 1 << 31
+    planes = [words(n, wv, ands=4), words(n, g, wv, ors=3),
+              words(n, g, wl, ors=3), words(n, g, k, wv, ors=3),
+              words(n, g, k, wl, ands=3)]
+    u, v = rng.integers(0, n, j), rng.integers(0, n, j)
+    u[: j // 2] = u[0]
+    rq, fb = words(j, wl, ands=3), words(j, wl, ors=2)
+    u[-1] = v[-1] = 0
+    rq[-1] = fb[-1] = 0
+    return u, v, rq, fb, npl, planes
+
+
+@pytest.mark.parametrize("j,g,k,wv,wl", B2_SHAPES + [(40, 3, 3, 8, 2)])
+def test_way_filter_at_plain_matches_reference(j, g, k, wv, wl):
+    """The fused entry on the index planes and job endpoints equals the
+    JAX ``filter_ways`` on the rows gathered with numpy."""
+    u, v, rq, fb, npl, (vtx, hv, hl, vv, vl) = _b2_plane_inputs(
+        11, j, g, k, wv, wl, seed=j * g + k)
+    got = ops.filter_ways_at(torch.from_numpy(u), torch.from_numpy(v),
+                             _t(rq), _t(fb), _t(npl), _t(vtx), _t(hv),
+                             _t(hl), _t(vv), _t(vl)).numpy()
+    if j * g >= 40:
+        assert 0 < got.sum() < got.size       # ways both pass and fail
+    rargs = [jnp.asarray(a) for a in (hv[u], hl[u], vv[u], vl[u], vtx[v],
+                                      rq, fb, npl)]
+    np.testing.assert_array_equal(
+        got, np.asarray(rops.filter_ways(*rargs, mode="ref")))
+    np.testing.assert_array_equal(
+        got, np.asarray(rops.filter_ways(*rargs, mode="interpret")))
+
+
 # ---------------------------------------------------------------- B3
 @pytest.mark.parametrize("m,kw,w,br,bw,nbits", B3_SHAPES)
 def test_block_sparse_plain_matches_reference(m, kw, w, br, bw, nbits):

@@ -93,6 +93,23 @@ def test_semiring_registry_and_scalars():
             rsr.dtype.itemsize
 
 
+@pytest.mark.parametrize("sr", [BOOLEAN, DIST16, DIST8, COUNT],
+                         ids=lambda s: s.name)
+def test_init_defaults_to_the_card(sr):
+    """``init`` makes its plane on the card unless the caller passes
+    ``device="cpu"``, as every entry point does; without a card the
+    default raises.  The CPU plane equals the JAX package's."""
+    if torch.cuda.is_available():
+        assert sr.init((2, 3)).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sr.init((2, 3))
+    got = sr.init((4, 3), device="cpu")
+    assert got.dtype == sr.dtype
+    np.testing.assert_array_equal(_lanes_np(got, sr),
+                                  np.asarray(RS.by_name(sr.name).init((4, 3))))
+
+
 @pytest.mark.parametrize("sr", LANE_SRS, ids=lambda s: s.name)
 def test_lane_algebra_matches_reference_at_saturation(sr):
     """combine / extend / segment_combine / accumulate equal the JAX
