@@ -48,7 +48,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    DIST16 plane of one ``dist_batch`` call (``min``), and at 4096 x 4096
    for ``sum``/uint32 and ``or``/uint8; B5 on ``h_vtx`` as [rows, words];
    B6 on the forward block adjacency with the same DIST16 plane, also
-   against B4 on the decompressed matrix.
+   against B4 on the decompressed matrix, and the device kernels one B6
+   call launches (one without ONE blocks); ``torch.profiler`` gives the
+   kernel-only device time of B3, B5 and B6.
 6. Where the time goes: the host pieces of build and query timed alone,
    and ``build_index``, ``answer_batch`` and ``dist_batch`` run again
    under ``torch.profiler`` for the device-busy share and the top kernels.
@@ -135,8 +137,9 @@ def time_ms(torch, fn, reps: int, *, queued: bool = True) -> float:
 
 
 def profile(torch, fn):
-    """(wall s, device-busy s, top kernels) of one call of ``fn`` under
-    ``torch.profiler``; device time is the sum of self device times."""
+    """(wall s, device-busy s, top kernels, device kernels launched) of one
+    call of ``fn`` under ``torch.profiler``; device time is the sum of self
+    device times."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -153,7 +156,7 @@ def profile(torch, fn):
     busy = sum(e.self_device_time_total for e in evs) / 1e6
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
     return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3,
-                         e.count) for e in top]
+                         e.count) for e in top], sum(e.count for e in evs)
 
 
 def words_err(torch, got, want) -> int:
@@ -265,6 +268,16 @@ def main() -> int:
               f"launch: {call_ms:.4f}) plain_ms={plain:.4f} "
               f"bound_ms={max(b_bytes, b_ops):.4f} library_ms={lib_ms}")
         return err == 0
+
+    def print_profiled(name, fn):
+        """Kernel-only device time per launch over KERNEL_REPS calls;
+        returns the device kernels one call launched (the profiler may
+        miss the first kernel it traces, hence the rounding)."""
+        _, _, top, n_kernels = profile(torch, lambda: [
+            fn() for _ in range(KERNEL_REPS)])
+        print(f"{name} profiled: " + "; ".join(
+            f"{k} {1e3 * ms / n:.4f} us x{n}" for k, ms, n in top))
+        return round(n_kernels / KERNEL_REPS)
 
     ok = True
     one = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -381,10 +394,9 @@ def main() -> int:
             lambda bcomp=bcomp, x=x: ref.block_sparse_matmul_ref(bcomp, x),
             bs_bytes, x.numel() + live_bits * w + n_one_live * bcomp.br * w,
             lambda a=a_unp_c, xu=x_unp: torch.matmul(a, xu), err=err)
-        _, _, top = profile(torch, lambda bcomp=bcomp, x=x: [
-            ops.frontier_step_sparse(bcomp, x) for _ in range(KERNEL_REPS)])
-        print(f"block_sparse_matmul[{label}] profiled: " + "; ".join(
-            f"{k} {1e3 * ms / n:.4f} us x{n}" for k, ms, n in top))
+        print_profiled(f"block_sparse_matmul[{label}]",
+                       lambda bcomp=bcomp, x=x: ops.frontier_step_sparse(
+                           bcomp, x))
         del a_unp_c, x_unp
     comp = comp_f
     del a_unp
@@ -590,33 +602,55 @@ def main() -> int:
         lambda: ops.popcount(h_rows), lambda: ref.popcount_rows_ref(h_rows),
         h_rows.numel() * 4 + h_rows.shape[0] * 4, h_rows.numel() * 2,
         n_launches=aux_launches.get("popcount_rows", 0))
+    print_profiled("popcount_rows", lambda: ops.popcount(h_rows))
     b6 = ops.block_sparse_lane_matmul(comp, x_dist, op="min")
     b6_plain = ref.block_sparse_lane_matmul_ref(comp, x_dist, op="min")
     b4_dense = ops.frontier_step_lanes(
         adj, ref.pad_k_lanes(x_dist, kw * 32, "min"), op="min")
-    colr6, xany6 = ref.k_block_lane_summaries(x_dist, comp.grid[1], bk,
-                                              "min", 0)
+    mb6, kb6 = comp.grid
+    n_mixed6, n_one6 = comp.n_mixed, comp.one_bj.numel()
+    blk_words = comp.br * comp.bw
+    bits6 = bitset.popcount(comp.pool[:n_mixed6].reshape(n_mixed6, -1))
+    n_bits6 = int(bits6.sum())
+    out6_bytes = comp.shape[0] * w_d * lanes_b
+    # least bytes: X once, the live lists (offsets and every entry's
+    # k-block id), the MIXED pool blocks, the output
+    b6_bytes = (x_dist.numel() * lanes_b + 2 * (mb6 + 1) * 4
+                + (n_mixed6 + n_one6) * 4 + n_mixed6 * blk_words * 4
+                + out6_bytes)
+    # the count over the state grid of the earlier kernel's bound, and
+    # what an x_any skip of dead k-blocks (no non-INF lane) would drop
+    _, xany6 = ref.k_block_lane_summaries(x_dist, kb6, bk, "min", 0)
     live6 = (comp.states != 0) & (xany6 != 0)[None, :]
-    n_live6 = int(live6.sum())
-    n_mixed6 = int((live6 & (comp.states == 2)).sum())
+    n_mixed_live6 = int((live6 & (comp.states == 2)).sum())
     live_k6 = int((xany6 != 0).sum())
+    grid6_bytes = (comp.states.numel() + int(live6.sum()) * 4
+                   + n_mixed_live6 * blk_words * 4 + kb6 * 4
+                   + live_k6 * (1 + bk) * w_d * lanes_b + out6_bytes)
+    dead6 = xany6[comp.mix_bj[:n_mixed6].long()] == 0
+    b4_err = words_err(torch, b6, b4_dense)
+    print(f"block_sparse_lane_matmul: {n_mixed6} MIXED blocks ({n_bits6} "
+          f"set bits) and {n_one6} ONE blocks; bound counted over the state "
+          f"grid {grid6_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {live_k6} of "
+          f"{kb6} k-blocks live: an x_any skip would drop "
+          f"{int(dead6.sum())} MIXED entries and {int(bits6[dead6].sum())} "
+          f"row gathers; max_abs_err against B4 on the decompressed "
+          f"matrix {b4_err}")
     ok &= record(
         "block_sparse_lane_matmul[min,u16]",
         "src/repro_torch/kernels/csrc/block_sparse_lane.cu",
         "src/repro/kernels/block_sparse.py:172", b6, b6_plain,
         lambda: ops.block_sparse_lane_matmul(comp, x_dist, op="min"),
         lambda: ref.block_sparse_lane_matmul_ref(comp, x_dist, op="min"),
-        (comp.states.numel() + n_live6 * 4 + n_mixed6 * comp.br * comp.bw * 4
-         + comp.grid[1] * 4 + live_k6 * (1 + bk) * w_d * lanes_b
-         + comp.grid[0] * comp.br * w_d * lanes_b),
-        comp.states.numel() + 2 * g.n_edges * w_d,
+        b6_bytes, n_bits6 * w_d + n_one6 * comp.br * w_d,
         n_launches=aux_launches.get("block_sparse_lane_matmul", 0),
-        err=max(words_err(torch, b6, b6_plain),
-                words_err(torch, b6, b4_dense)))
-    print(f"block_sparse_lane_matmul: {n_live6} live blocks "
-          f"({n_mixed6} MIXED), {live_k6} of {comp.grid[1]} k-blocks live; "
-          f"max_abs_err against B4 on the decompressed matrix "
-          f"{words_err(torch, b6, b4_dense)}")
+        err=max(words_err(torch, b6, b6_plain), b4_err))
+    n_dev6 = print_profiled(
+        "block_sparse_lane_matmul[min,u16]",
+        lambda: ops.block_sparse_lane_matmul(comp, x_dist, op="min"))
+    print(f"block_sparse_lane_matmul: one call launched {n_dev6} device "
+          f"kernel(s)")
+    ok &= n_dev6 == (2 if n_one6 else 1)
     del b6, b6_plain, b4_dense, a_csr
     if not ok:
         return fail("a semiring kernel disagrees with its plain version")
@@ -650,7 +684,7 @@ def main() -> int:
             ("dist_batch", lambda: (eng._label_adj.clear(),
                                     tdr_query.dist_batch(
                 idx, dq, exact_chunk=EXACT_CHUNK)))):
-        wall, busy, top = profile(torch, fn)
+        wall, busy, top, _ = profile(torch, fn)
         print(f"profile {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall):.1f}% idle); top device time: "
               + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))

@@ -43,8 +43,8 @@ _ARGTYPES = {
     "tdr_way_filter": [_P] * 11 + [_I] * 8 + [_P],
     "tdr_block_sparse_matmul": [_P] * 8 + [_I] * 11 + [_P],
     "tdr_lane_matmul": [_P, _P, _P] + [_I] * 5 + [_U, _P],
-    "tdr_block_sparse_lane_matmul": [_P] * 7 + [_I] * 8 + [_U, _P],
-    "tdr_popcount_rows": [_P, _P, _I, _I, _P],
+    "tdr_block_sparse_lane_matmul": [_P] * 8 + [_I] * 13 + [_U, _P],
+    "tdr_popcount_rows": [_P, _P, _I, _I, _I, _P],
 }
 
 

@@ -279,12 +279,30 @@ def test_lane_matmul_kernel_matches_plain(cuda, m, k, w, op, dt, cap):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,w", [(1, 1), (77, 9), (600, 3), (33, 40),
-                                 (131072, 8), (4096, 1024)])
+                                 (131072, 8), (4096, 1024), (1000, 4),
+                                 (999, 8), (257, 1024), (70001, 7),
+                                 (5, 12), (300, 33)])
 def test_popcount_kernel_matches_plain(cuda, n, w):
     rng = np.random.default_rng(n)
     words = _words(rng, n, w)
     words[0, 0] = 0xFFFFFFFF
     h, d = _both(words, cuda)
+    n0 = ops.KERNEL_LAUNCHES["popcount_rows"]
+    got = ops.popcount(d)
+    assert ops.KERNEL_LAUNCHES["popcount_rows"] == n0 + 1
+    assert torch.equal(got.cpu(), ref.popcount_rows_ref(h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w", [(999, 4), (4097, 8), (300, 1024),
+                                 (77, 9)])
+def test_popcount_kernel_misaligned_rows(cuda, n, w):
+    """Words one word off a 16-byte boundary take the one-word loads."""
+    rng = np.random.default_rng(n + w)
+    words = _words(rng, n, w)
+    h, d = _both(words, cuda)
+    d = torch.cat([d.new_zeros(1), d.reshape(-1)])[1:].reshape(n, w)
+    assert d.data_ptr() % 16 and d.is_contiguous()
     n0 = ops.KERNEL_LAUNCHES["popcount_rows"]
     got = ops.popcount(d)
     assert ops.KERNEL_LAUNCHES["popcount_rows"] == n0 + 1
@@ -323,6 +341,109 @@ def test_block_sparse_lane_kernel_matches_plain(cuda, m, kw, w, br, bw,
         bitset.np_to_words(a_p, "cpu"),
         ref.pad_k_lanes(x_h, kw * 32, op), op=op, cap=cap)
     assert torch.equal(want, dense)
+
+
+def _b6_operand(br, bw, w, frontier, op, dt, cap, dev):
+    """(A packed, CPU and card operands, X on both) for one B6 case; the
+    k-block width is ``32·bw`` and ``nbits`` is off it."""
+    m, kw, nbits = 203, 7, 210
+    rng = np.random.default_rng(br * 100 + bw * 10 + w)
+    a = rng.random((m, kw * 32)) < 0.05
+    if frontier != "no_one":
+        a[:16] = True                  # ONE blocks
+    a[32:40] = False                   # ZERO strip
+    a[:, nbits:] = False
+    a_p = bitset.pack_bits_np(a)
+    # short_v: A selects rows of X past V, which read as the identity
+    v = nbits - 37 if frontier == "short_v" else nbits
+    x = _lane_x(rng, v, w, op, dt, cap)
+    ident = int(np.iinfo(dt).max) if op == "min" else 0
+    x[40:72] = ident                   # a dead k-block
+    if frontier == "empty":
+        x[:] = ident
+    comp_h = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device="cpu")
+    comp_d = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                        device=dev)
+    x_h, x_d = _lane_pair(x, dev)
+    if frontier == "unaligned":        # X one lane off a 16-byte boundary
+        x_d = torch.cat([x_d.new_zeros(1), x_d.reshape(-1)])[1:]
+        x_d = x_d.reshape(v, w)
+        assert x_d.data_ptr() % 16 and x_d.is_contiguous()
+    return a_p, kw, comp_h, comp_d, x_h, x_d
+
+
+def _b6_check(a_p, kw, comp_h, comp_d, x_h, x_d, op, cap, dense=True):
+    """One counted launch, equal to the plain version and (``dense``) to
+    dense B4; returns the plain result."""
+    n0 = ops.KERNEL_LAUNCHES["block_sparse_lane_matmul"]
+    got = ops.block_sparse_lane_matmul(comp_d, x_d, op=op, cap=cap)
+    assert ops.KERNEL_LAUNCHES["block_sparse_lane_matmul"] == n0 + 1
+    assert got.dtype == x_d.dtype and got.shape == (comp_h.shape[0],
+                                                    x_d.shape[1])
+    want = ref.block_sparse_lane_matmul_ref(comp_h, x_h, op=op, cap=cap)
+    assert torch.equal(got.cpu(), want)
+    if dense:
+        assert torch.equal(want, ref.lane_matmul_ref(
+            bitset.np_to_words(a_p, "cpu"), ref.pad_k_lanes(x_h, kw * 32, op),
+            op=op, cap=cap))
+    return want
+
+
+# (br, bw, W): W = 128 is the main path's; 133 is off every 16-byte
+# vector; 264 takes two or three W tiles (one for uint8 lanes)
+B6_GRID = [(8, 1, 128), (4, 2, 133), (16, 2, 264), (3, 1, 8), (8, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br,bw,w", B6_GRID)
+@pytest.mark.parametrize("frontier", ["one", "no_one", "short_v", "empty",
+                                      "unaligned"])
+@pytest.mark.parametrize("op,dt,cap", LANE_CASES)
+def test_block_sparse_lane_live_list_kernel(cuda, br, bw, w, frontier, op,
+                                            dt, cap):
+    """The live-list lane kernel on ragged row and column tails, with and
+    without ONE blocks (the column-(+) pre-pass runs only with them), rows
+    of X past V, and the packed and scalar paths: bit-equal to the plain
+    version and to dense B4, one counted launch per call."""
+    a_p, kw, comp_h, comp_d, x_h, x_d = _b6_operand(br, bw, w, frontier, op,
+                                                    np.dtype(dt).type, cap,
+                                                    cuda)
+    want = _b6_check(a_p, kw, comp_h, comp_d, x_h, x_d, op, cap)
+    assert (comp_h.one_bj.numel() == 0) == (frontier == "no_one")
+    if frontier == "empty":
+        ident = int(np.iinfo(dt).max) if op == "min" else 0
+        assert (want.numpy().view(dt) == ident).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,cap,w", [("uint32", 2 ** 32 - 2, 8),
+                                      ("uint32", 2 ** 32 - 2, 5),
+                                      ("uint32", 3_000_000_000, 128),
+                                      ("uint16", 65535, 8),
+                                      ("uint16", 70000, 8),
+                                      ("uint8", 255, 16),
+                                      ("uint8", 300, 16)])
+def test_block_sparse_lane_sum_saturates(cuda, dt, cap, w):
+    """A saturating sum whose unsaturated totals pass the lane and 2^32:
+    every step clamps at ``cap`` and nothing wraps.  A ``cap`` over the
+    lane maximum keeps the block plain version's truncation, which narrows
+    its column summaries, so dense B4 differs there and is not compared."""
+    m, kw, nbits = 64, 4, 120
+    rng = np.random.default_rng(w + kw)
+    a = rng.random((m, kw * 32)) < 0.5
+    a[:8] = True
+    a[:, nbits:] = False
+    a_p = bitset.pack_bits_np(a)
+    hi = int(np.iinfo(dt).max)
+    x = rng.integers(hi // 2, hi + 1, size=(nbits, w)).astype(dt)
+    comp_h = compressed.compress_blocks(a_p, nbits=nbits, device="cpu")
+    comp_d = compressed.compress_blocks(a_p, nbits=nbits, device=cuda)
+    x_h, x_d = _lane_pair(x, cuda)
+    assert int(x.astype(np.uint64).sum(0).max()) > min(cap, hi)
+    want = _b6_check(a_p, kw, comp_h, comp_d, x_h, x_d, "sum", cap,
+                     dense=cap <= hi)
+    assert (want.numpy().view(dt) == np.array(cap).astype(dt)).any()
 
 
 def _kind_queries(rng, n_vertices, n_labels, n):
