@@ -54,6 +54,24 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 6. Where the time goes: the host pieces of build and query timed alone,
    and ``build_index``, ``answer_batch`` and ``dist_batch`` run again
    under ``torch.profiler`` for the device-busy share and the top kernels.
+7. The live index, with launch counts set to 0 just before each call of
+   the live path (``update_index`` on ``matmul``, the answers,
+   ``filters_only``) and read just after it, so the pinned rebuilds and
+   the segment chain count nothing: three update batches from ``default_rng(2)`` (256 inserted
+   edges; 64 label changes, remove ``(u, v, l)`` and add
+   ``(u, v, l + 1)``; 64 deletions) chained through ``update_index`` with
+   the default backend (``matmul``: warm block-sparse closures over the
+   operands ``Engine.apply_delta`` patched) and with ``segment``; each
+   step's 17 planes, ``vtx_words`` and ``disc`` equal the layout-pinned
+   rebuild and the segment chain, and batch (a) must run incremental with
+   ``block_sparse_matmul`` launched over the block operand it patched.  Then the 512 queries on the updated
+   index (matmul equals segment, 32 equal the DFS oracle on the new
+   graph, one ``filters_only`` call bounds them); B3 on the patched
+   forward block operand, whose every field equals ``compress_blocks`` of
+   the new adjacency, against its plain version; and durability:
+   ``save_index`` of the built index at LSN 0 under ``build/``, the three
+   deltas in a ``DeltaLog``, ``load_index`` onto the card and replay
+   through ``update_index`` equal to the chained index.
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -62,6 +80,7 @@ beside this file.  Imports nothing from JAX or the ``repro`` package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -88,6 +107,12 @@ KERNEL_REPS = 20
 PLAIN_REPS = 5
 SLEEP_CYCLES = 20_000_000      # ~10 ms of device sleep per timed call
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
+# every array an index stores: the planes and the maintenance state
+ALL_PLANES = PLANES + ("push", "pop", "g_count", "base_v", "base_l",
+                       "base_r", "r_vtx", "r_lab", "r_in", "d_vtx", "d_lab")
+N_INSERTS = 256                # live-index batch (a)
+N_RELABELS = 64                # live-index batch (b)
+N_DELETES = 64                 # live-index batch (c)
 
 
 def fail(msg: str) -> int:
@@ -168,6 +193,209 @@ def words_err(torch, got, want) -> int:
     if g.shape != w.shape:
         return mask
     return int((g - w).abs().max()) if g.numel() else 0
+
+
+def update_batches(rng, g):
+    """The live-index phase's three batches as functions of the graph they
+    apply to: 256 inserted edges with random labels, 64 label changes
+    (remove ``(u, v, l)``, add ``(u, v, l + 1)``), 64 deletions."""
+    def inserts(cur):
+        uv = rng.integers(0, cur.n_vertices, size=(N_INSERTS, 2))
+        uv = uv[uv[:, 0] != uv[:, 1]]
+        lab = rng.integers(0, cur.n_labels, size=uv.shape[0])
+        return [tuple(int(x) for x in e) for e in zip(*uv.T, lab)], []
+
+    def picked(cur, n):
+        e = rng.choice(cur.n_edges, size=n, replace=False)
+        return [(int(u), int(v), int(l)) for u, v, l in zip(
+            cur.src[e], cur.indices[e], cur.labels[e])]
+
+    def relabels(cur):
+        rem = picked(cur, N_RELABELS)
+        return [(u, v, (l + 1) % cur.n_labels) for u, v, l in rem], rem
+
+    def deletions(cur):
+        return [], picked(cur, N_DELETES)
+
+    return [("a: inserts", inserts), ("b: label changes", relabels),
+            ("c: deletions", deletions)]
+
+
+def live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries, b3_row,
+                     kw) -> str | None:
+    """Phase 7: three update batches chained through ``update_index`` on
+    ``matmul`` and on ``segment``, each equal to the layout-pinned rebuild
+    on every plane; B3 on the patched block operand; the 512 queries on
+    the updated index; snapshot + delta-log recovery.  Returns a failure
+    message, or None."""
+    import shutil
+    import tempfile
+    from repro_torch import (bitset, compressed, deltalog, dfs_baseline,
+                             engine, snapshot, tdr_build, tdr_query)
+    from repro_torch.kernels import ops
+
+    def same_index(a, b):
+        bad = [p for p in ALL_PLANES if not torch.equal(getattr(a, p),
+                                                        getattr(b, p))]
+        if not np.array_equal(a.vtx_words, b.vtx_words):
+            bad.append("vtx_words")
+        if not np.array_equal(a.disc, b.disc):
+            bad.append("disc")
+        return bad
+
+    path = collections.Counter()   # launches of the live path's own calls
+
+    def on_path(fn, *args, **kwargs):
+        """One call of the live path, with the counts set to 0 just before
+        it and added into ``path`` just after.  The pinned rebuilds, the
+        segment chain and the checks run outside these windows."""
+        ops.KERNEL_LAUNCHES.clear()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        path.update(ops.KERNEL_LAUNCHES)
+        return out
+
+    rng = np.random.default_rng(2)
+    cur_m, cur_s, cur_g = idx, idx_s, g
+    deltas, idx_a, n_patched = [], None, 0
+    torch.cuda.synchronize()
+    for name, make in update_batches(rng, g):
+        add, rem = make(cur_g)
+        delta = cur_g.apply_updates(add, rem)
+        warm = cur_m._engines.get("matmul")
+        warm = warm is not None and False in warm._bcomp
+        n_b3 = path["block_sparse_matmul"]
+        st = tdr_build.UpdateStats()
+        cur_m = on_path(tdr_build.update_index, cur_m, delta, stats=st)
+        n_b3 = path["block_sparse_matmul"] - n_b3
+        if st.mode == "incremental" and warm:
+            n_patched += n_b3   # warm closures over the patched operand
+        st_s = tdr_build.UpdateStats()
+        cur_s = tdr_build.update_index(cur_s, delta, engine_config=seg_cfg,
+                                       stats=st_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = tdr_build.build_index(delta.graph, cfg, layout=idx.disc)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        cur_g = delta.graph
+        deltas.append(delta)
+        print(f"update {name}: +{st.n_added} -{st.n_removed} edges; "
+              f"matmul mode={st.mode} tail={st.tail or '-'} dirty_fwd="
+              f"{st.dirty_fwd} dirty_rev={st.dirty_rev} changed_rows="
+              f"{st.changed_rows} patch_rows={st.patch_rows} rounds="
+              f"{st.rounds} wall {st.wall_s:.3f} s, block_sparse_matmul "
+              f"launches {n_b3}; segment mode={st_s.mode} tail="
+              f"{st_s.tail or '-'} wall {st_s.wall_s:.3f} s; layout-pinned "
+              f"rebuild {rebuild_s:.3f} s")
+        for other, what in ((pinned, "the pinned rebuild"),
+                            (cur_s, "the segment chain")):
+            bad = same_index(cur_m, other)
+            if bad:
+                return f"after update {name}, planes {bad} differ from {what}"
+        if idx_a is None:
+            if st.mode != "incremental" or n_b3 < 1 or not warm:
+                return (f"update {name} ran mode={st.mode} with {n_b3} "
+                        "block_sparse_matmul launches (block operand cached "
+                        f"before: {warm}); expected incremental through the "
+                        "kernel over a patched operand")
+            idx_a = cur_m
+        del pinned
+
+    # the 512 queries on the updated index, and one filters_only call
+    stats = tdr_query.QueryStats()
+    t0 = time.perf_counter()
+    answers = on_path(tdr_query.answer_batch, cur_m, queries,
+                      exact_chunk=EXACT_CHUNK, stats=stats)
+    answer_s = time.perf_counter() - t0
+    upper = on_path(tdr_query.answer_batch, cur_m, queries, filters_only=True)
+    print(f"live-index path kernel launches (update_index on matmul, the "
+          f"answers, filters_only): {dict(path)}; block_sparse_matmul over "
+          f"patched operands: {n_patched}")
+    for kname in ("bitset_matmul", "way_filter", "block_sparse_matmul"):
+        if path[kname] <= 0:
+            return f"{kname} was not launched on the live-index path"
+    answers_s = tdr_query.answer_batch(cur_s, queries, exact_chunk=EXACT_CHUNK,
+                                       engine_config=seg_cfg)
+    print(f"answer_batch on the updated index: {answer_s:.3f} s, "
+          f"{len(queries) / answer_s:.1f} queries/s; {int(answers.sum())} "
+          f"TRUE; phase 2 jobs={stats.exact_jobs} rounds="
+          f"{stats.exact_rounds}; filters_only upper bound "
+          f"{int(upper.sum())} TRUE")
+    if not np.array_equal(answers, answers_s):
+        return "answers on the updated index differ between the backends"
+    if (answers & ~upper).any():
+        return "filters_only rejected a reachable query"
+    exact = list(stats.exact_qids)
+    pick = exact[:16] + [q for q in range(len(queries))
+                         if q not in set(exact)][:16]
+    for qi in pick:
+        uq, vq, p = queries[qi]
+        if dfs_baseline.answer_pcr(cur_g, uq, vq, p) != bool(answers[qi]):
+            return f"query {qi} on the updated index differs from the oracle"
+    print(f"oracle: {len(pick)} answers on the updated graph "
+          f"({len(exact[:16])} from phase 2) equal the DFS oracle")
+
+    # B3 on the block operand that patch_blocks produced in batch (a)
+    eng_a = idx_a.engine()
+    comp_p = eng_a.block_adjacency()
+    fresh = compressed.compress_blocks(
+        engine.pack_adjacency_np(idx_a.graph), br=comp_p.br, bw=comp_p.bw,
+        nbits=idx_a.graph.n_vertices)
+    stale = [f for f in ("states", "slots", "pool", "mix_bi", "mix_bj",
+                         "mix_off", "one_off", "one_bj")
+             if not torch.equal(getattr(comp_p, f), getattr(fresh, f))]
+    if stale or comp_p.n_mixed != fresh.n_mixed:
+        return f"patched block operand fields {stale} differ from fresh"
+    print(f"patched block operand: {comp_p.n_mixed} MIXED blocks (fresh "
+          f"compress_blocks: {fresh.n_mixed}), every field equal")
+    del fresh
+    adj_p = eng_a.adjacency()
+    a_unp_p = bitset.unpack_bits(adj_p, kw * 32).to(torch.bfloat16)
+    if not b3_row("patched", comp_p, idx_a.base_v, adj_p, a_unp_p, False,
+                  n_launches=n_patched):
+        return "block_sparse_matmul disagrees on the patched operand"
+    del a_unp_p
+
+    # durability: snapshot at LSN 0, the three deltas logged, recovery
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="live_", dir=root)
+    try:
+        path, wal = f"{tmp}/snap.tdr", f"{tmp}/delta.wal"
+        t0 = time.perf_counter()
+        n_bytes = snapshot.save_index(idx, path, lsn=0)
+        save_s = time.perf_counter() - t0
+        with deltalog.DeltaLog(wal) as log:
+            for d in deltas:
+                log.append(d.added, d.removed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, lsn = snapshot.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with deltalog.DeltaLog(wal, create=False) as log:
+            for _, a, r in log.replay(lsn):
+                rec = tdr_build.update_index(rec,
+                                             rec.graph.apply_updates(a, r))
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mem = idx.index_memory_stats()
+    print(f"snapshot: {n_bytes} bytes, save {save_s:.3f} s, load "
+          f"{load_s:.3f} s, replay of {len(deltas)} log records "
+          f"{replay_s:.3f} s; the nine query-side planes: "
+          f"{mem['dense_bytes']} bytes dense, {mem['compressed_bytes']} "
+          f"compressed (ratio {mem['ratio']}), per plane "
+          + ", ".join(f"{k} {v['ratio']}" for k, v in mem["planes"].items()))
+    bad = same_index(rec, cur_m)
+    if bad:
+        return f"snapshot + replay planes {bad} differ from the chained index"
+    if rec.device.type != "cuda":
+        return f"the snapshot loaded onto {rec.device}"
+    return None
 
 
 def main() -> int:
@@ -350,9 +578,10 @@ def main() -> int:
           f"k-blocks per call {live_ks}; late frontier = call {late_i}")
     frontiers = [("first", comp_f, idx.base_v),
                  ("late", *sparse_calls[late_i])]
-    for label, bcomp, x in frontiers:
-        rev = bcomp is eng.block_adjacency(reverse=True)
-        adj_c = eng.adjacency(reverse=rev)
+
+    def b3_row(label, bcomp, x, adj_c, a_unp_c, reverse, n_launches=None):
+        """B3 on one operand and frontier against its plain version and
+        dense B1 on the same matrix, with its bounds and profiled time."""
         xany = ref.k_block_summaries(x, kb, bk)[1] != 0
         mix_live = xany[bcomp.mix_bj[:bcomp.n_mixed].long()]
         one_live = xany[bcomp.one_bj.long()]
@@ -376,28 +605,35 @@ def main() -> int:
         err = max(words_err(torch, got, ref.block_sparse_matmul_ref(bcomp, x)),
                   words_err(torch, got, ops.frontier_step(
                       adj_c, ref.pad_k(x, kw * 32).contiguous())))
-        a_unp_c = a_unp if not rev else bitset.unpack_bits(
-            adj_c, kw * 32).to(torch.bfloat16)
         x_unp = bitset.unpack_bits(ref.pad_k(x, kw * 32), w * 32).to(
             torch.bfloat16)
-        print(f"block_sparse_matmul[{label}]: {'reverse' if rev else 'forward'}"
-              f" adjacency, X {tuple(x.shape)}, {int(xany.sum())} of {kb} "
+        print(f"block_sparse_matmul[{label}]: "
+              f"{'reverse' if reverse else 'forward'} adjacency, X "
+              f"{tuple(x.shape)}, {int(xany.sum())} of {kb} "
               f"k-blocks live, {n_mixed_live} of {bcomp.n_mixed} MIXED and "
               f"{n_one_live} of {bcomp.one_bj.numel()} ONE blocks live, "
               f"{live_bits} live set bits; bound counted over the state grid "
               f"{grid_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        ok &= record(
+        good = record(
             f"block_sparse_matmul[{label}]",
             "src/repro_torch/kernels/csrc/block_sparse.cu",
             "src/repro/kernels/block_sparse.py:55", got, got,
-            lambda bcomp=bcomp, x=x: ops.frontier_step_sparse(bcomp, x),
-            lambda bcomp=bcomp, x=x: ref.block_sparse_matmul_ref(bcomp, x),
+            lambda: ops.frontier_step_sparse(bcomp, x),
+            lambda: ref.block_sparse_matmul_ref(bcomp, x),
             bs_bytes, x.numel() + live_bits * w + n_one_live * bcomp.br * w,
-            lambda a=a_unp_c, xu=x_unp: torch.matmul(a, xu), err=err)
+            lambda: torch.matmul(a_unp_c, x_unp), n_launches=n_launches,
+            err=err)
         print_profiled(f"block_sparse_matmul[{label}]",
-                       lambda bcomp=bcomp, x=x: ops.frontier_step_sparse(
-                           bcomp, x))
-        del a_unp_c, x_unp
+                       lambda: ops.frontier_step_sparse(bcomp, x))
+        return good
+
+    for label, bcomp, x in frontiers:
+        rev = bcomp is eng.block_adjacency(reverse=True)
+        adj_c = eng.adjacency(reverse=rev)
+        a_unp_c = a_unp if not rev else bitset.unpack_bits(
+            adj_c, kw * 32).to(torch.bfloat16)
+        ok &= b3_row(label, bcomp, x, adj_c, a_unp_c, rev)
+        del a_unp_c
     comp = comp_f
     del a_unp
     if not ok:
@@ -688,6 +924,12 @@ def main() -> int:
         print(f"profile {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall):.1f}% idle); top device time: "
               + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+
+    # ---- 7. live index: updates, answers on the new graph, durability ---
+    msg = live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries,
+                           b3_row, kw)
+    if msg:
+        return fail(msg)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,21 @@ class CompressedPlanes:
     def n_words(self) -> int:
         return int(self.shape[-1])
 
+    @property
+    def dense_nbytes(self) -> int:
+        return self.n_rows * self.n_words * 4
+
+    @property
+    def nbytes(self) -> int:
+        """Canonical storage only: 2-bit packed states plus pool words (the
+        unpacked state views and prefix offsets are derivable caches)."""
+        states = -(-self.n_rows // 4) - (-self.word_states.size // 4)
+        return states + self.pool.size * 4
+
+    @property
+    def ratio(self) -> float:
+        return self.dense_nbytes / max(self.nbytes, 1)
+
     def decompress(self) -> np.ndarray:
         masks = _valid_masks(self.n_words, self.nbits)
         out = np.zeros((self.n_rows, self.n_words), dtype=np.uint32)
@@ -77,6 +92,53 @@ class CompressedPlanes:
         rows[mixed] = self.pool
         out[self.mix_rows] = rows
         return out.reshape(self.shape)
+
+    def same_as(self, other: "CompressedPlanes") -> bool:
+        return (self.shape == other.shape and self.nbits == other.nbits
+                and np.array_equal(self.row_states, other.row_states)
+                and np.array_equal(self.word_states, other.word_states)
+                and np.array_equal(self.pool, other.pool))
+
+    def patch_rows(self, rows: np.ndarray,
+                   new_rows: np.ndarray) -> "CompressedPlanes":
+        """Re-summarize ``rows`` from their new dense words; every other
+        row's states and pool segment are carried over untouched, so an
+        update's cost is O(|patch| + pool) with no full decompress."""
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        if rows.size == 0:
+            return self
+        new_rows = np.asarray(new_rows, dtype=np.uint32)
+        new_rows = new_rows.reshape(rows.size, self.n_words)
+        masks = _valid_masks(self.n_words, self.nbits)
+        r_new, w_new = _row_word_states(new_rows, masks)
+
+        row_states = self.row_states.copy()
+        row_states[rows] = r_new
+
+        patched = np.zeros(self.n_rows, dtype=bool)
+        patched[rows] = True
+        keep = ~patched[self.mix_rows]
+        pool_row = np.repeat(self.mix_rows,
+                             np.diff(self.pool_off))        # [NW]
+        pool_keep = keep[np.searchsorted(self.mix_rows, pool_row)]
+
+        add = r_new == MIXED
+        mix_ids = np.concatenate([self.mix_rows[keep], rows[add]])
+        order = np.argsort(mix_ids, kind="stable")
+        wstack = np.concatenate([self.word_states[keep], w_new[add]])
+        pool_ids = np.concatenate(
+            [pool_row[pool_keep],
+             np.repeat(rows[add], (w_new[add] == MIXED).sum(axis=1))])
+        pool_vals = np.concatenate(
+            [self.pool[pool_keep], new_rows[add][w_new[add] == MIXED]])
+        pool_order = np.argsort(pool_ids, kind="stable")
+        wstates = wstack[order]
+        counts = (wstates == MIXED).sum(axis=1, dtype=np.int64)
+        return CompressedPlanes(
+            shape=self.shape, nbits=self.nbits, row_states=row_states,
+            mix_rows=mix_ids[order], word_states=wstates,
+            pool=pool_vals[pool_order],
+            pool_off=np.concatenate([[0], np.cumsum(counts)]))
 
 
 def compress(plane, *, nbits: int | None = None) -> CompressedPlanes:
@@ -126,11 +188,65 @@ class BlockCompressed:
         return tuple(self.states.shape)
 
 
+def _block_view(a: torch.Tensor, br: int, bw: int) -> torch.Tensor:
+    """Rows ``[R·br, KB·bw]`` as blocks ``[R, KB, br, bw]``."""
+    r, kb = a.shape[0] // br, a.shape[1] // bw
+    return a.reshape(r, br, kb, bw).permute(0, 2, 1, 3)
+
+
+def _block_states(blocks: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """uint8 ZERO/ONE/MIXED state of each block of ``blocks`` against the
+    valid-bit masks ``full`` (same shape, zero outside the matrix)."""
+    zero = (blocks == 0).all(dim=3).all(dim=2)
+    ones = (blocks == full).all(dim=3).all(dim=2) & \
+        (full != 0).all(dim=3).all(dim=2)
+    return torch.where(zero, ALL_ZERO, torch.where(ones, ALL_ONE, MIXED)
+                       ).to(torch.uint8)
+
+
+def _assemble_blocks(shape: tuple, nbits: int, br: int, bw: int,
+                     states: torch.Tensor, vals: torch.Tensor
+                     ) -> BlockCompressed:
+    """The operand from its block states and the MIXED blocks' words
+    ``vals`` int32 ``[n_mixed, br, bw]`` in row-major state order: the
+    bucket-padded pool, slots, MIXED list and the kernel's live lists."""
+    mb, kb = states.shape
+    dev = states.device
+    bi, bj = torch.nonzero(states == MIXED, as_tuple=True)
+    n_mixed = int(bi.numel())
+    p = max(pad_bucket(max(n_mixed, 1), lo=8), 1)
+    pool = torch.zeros((p, br, bw), dtype=torch.int32, device=dev)
+    pool[:n_mixed] = vals
+    slots = torch.zeros((mb, kb), dtype=torch.int32, device=dev)
+    slots[bi, bj] = torch.arange(n_mixed, dtype=torch.int32, device=dev)
+    pad_i = torch.full((p - n_mixed,), mb, dtype=torch.int32,
+                       device=dev)                    # OOB segment sentinel
+    mix_bi = torch.cat([bi.to(torch.int32), pad_i])
+    mix_bj = torch.cat([bj.to(torch.int32), torch.zeros_like(pad_i)])
+    one_bi, one_bj = torch.nonzero(states == ALL_ONE, as_tuple=True)
+    return BlockCompressed(
+        shape=tuple(shape), nbits=nbits, br=br, bw=bw, states=states,
+        slots=slots, pool=pool, mix_bi=mix_bi, mix_bj=mix_bj,
+        n_mixed=n_mixed, mix_off=_row_offsets(bi, mb),
+        one_off=_row_offsets(one_bi, mb), one_bj=one_bj.to(torch.int32))
+
+
+def _full_rows(rows: torch.Tensor, m: int, kw: int, kbw: int,
+               nbits: int) -> torch.Tensor:
+    """int32 ``[len(rows), kbw]`` valid-bit masks of matrix rows ``rows``
+    (all zero for rows past ``m`` and columns past ``kw``)."""
+    masks = np.zeros(kbw, dtype=np.uint32)
+    masks[:kw] = _valid_masks(kw, nbits)
+    full = torch.from_numpy(masks.view(np.int32)).to(rows.device)
+    return torch.where((rows < m)[:, None], full[None, :], 0).to(torch.int32)
+
+
 def compress_blocks(a_packed: np.ndarray, *, br: int = 8, bw: int = 1,
                     nbits: int | None = None,
                     device="cuda") -> BlockCompressed:
     """Build the block-state operand from a dense packed bit-matrix, on
     ``device`` (the card by default; pass ``device="cpu"`` without one).
+    The blocks are classified on the host, then the operand moves.
 
     Blocks straddling the row or valid-column tail never classify
     ``ALL_ONE`` (the padding is zero and the tail mask partial), so the
@@ -143,38 +259,82 @@ def compress_blocks(a_packed: np.ndarray, *, br: int = 8, bw: int = 1,
     mb, kb = -(-m // br), -(-kw // bw)
     pad = np.zeros((mb * br, kb * bw), dtype=np.uint32)
     pad[:m, :kw] = a
-    blocks = (pad.reshape(mb, br, kb, bw).transpose(0, 2, 1, 3)
-              .reshape(mb, kb, br, bw))
-    full = np.zeros((mb * br, kb * bw), dtype=np.uint32)
-    full[:m, :kw] = _valid_masks(kw, nbits)[None, :]
-    full = (full.reshape(mb, br, kb, bw).transpose(0, 2, 1, 3)
-            .reshape(mb, kb, br, bw))
-    zero = (blocks == 0).all(axis=(2, 3))
-    ones = ((blocks == full).all(axis=(2, 3))
-            & (full != 0).all(axis=(2, 3)))
-    states = np.where(zero, ALL_ZERO,
-                      np.where(ones, ALL_ONE, MIXED)).astype(np.uint8)
-    bi, bj = np.nonzero(states == MIXED)
-    n_mixed = bi.size
-    p = max(pad_bucket(max(n_mixed, 1), lo=8), 1)
-    pool = np.zeros((p, br, bw), dtype=np.uint32)
-    pool[:n_mixed] = blocks[bi, bj]
-    slots = np.zeros((mb, kb), dtype=np.int32)
-    slots[bi, bj] = np.arange(n_mixed, dtype=np.int32)
-    pad_i = np.full(p - n_mixed, mb, dtype=np.int32)   # OOB segment sentinel
-    mix_bi = np.concatenate([bi.astype(np.int32), pad_i])
-    mix_bj = np.concatenate([bj.astype(np.int32),
-                             np.zeros(p - n_mixed, np.int32)])
-    states_t = torch.from_numpy(states).to(device)
-    mix_bi_t = torch.from_numpy(mix_bi).to(device)
-    one_bi, one_bj = torch.nonzero(states_t == ALL_ONE, as_tuple=True)
-    return BlockCompressed(
-        shape=(m, kw), nbits=nbits, br=br, bw=bw, states=states_t,
-        slots=torch.from_numpy(slots).to(device),
-        pool=torch.from_numpy(pool.view(np.int32)).to(device),
-        mix_bi=mix_bi_t, mix_bj=torch.from_numpy(mix_bj).to(device),
-        n_mixed=n_mixed, mix_off=_row_offsets(mix_bi_t[:n_mixed], mb),
-        one_off=_row_offsets(one_bi, mb), one_bj=one_bj.to(torch.int32))
+    blocks = _block_view(torch.from_numpy(pad.view(np.int32)), br, bw)
+    full = _full_rows(torch.arange(mb * br), m, kw, kb * bw, nbits)
+    states = _block_states(blocks, _block_view(full, br, bw))
+    bi, bj = torch.nonzero(states == MIXED, as_tuple=True)
+    return _assemble_blocks((m, kw), nbits, br, bw, states.to(device),
+                            blocks[bi, bj].to(device))
+
+
+def patch_blocks(comp: BlockCompressed, rows: np.ndarray,
+                 row_words) -> BlockCompressed:
+    """A new operand with matrix rows ``rows`` replaced by ``row_words``
+    (packed words ``[len(rows), Kw]``, uint32 numpy or an int32 tensor).
+
+    Only the row-block strips the rows touch are re-summarized, on the
+    operand's device; untouched strips keep their states and blocks, and
+    the pool, slots and live lists are re-compacted exactly as
+    ``compress_blocks`` of the patched matrix lays them out.  ``comp`` is
+    not written."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if rows.size == 0:
+        return comp
+    dev = comp.states.device
+    m, kw = comp.shape
+    br, bw = comp.br, comp.bw
+    mb, kb = comp.grid
+    bi_np = np.unique(rows // br)
+    bi_aff = torch.from_numpy(bi_np).to(dev)
+    n_aff = bi_np.size
+
+    # materialize the affected strips from the old block form
+    st_aff = comp.states[bi_aff]                               # [S, KB]
+    strip_rows = bi_aff[:, None] * br + torch.arange(br, device=dev)[None, :]
+    full = _full_rows(strip_rows.reshape(-1), m, kw, kb * bw, comp.nbits)
+    fullb = _block_view(full, br, bw)                          # [S,KB,br,bw]
+    blocks = torch.where((st_aff == ALL_ONE)[:, :, None, None], fullb, 0
+                         ).to(torch.int32)
+    si, sj = torch.nonzero(st_aff == MIXED, as_tuple=True)
+    blocks[si, sj] = comp.pool[comp.slots[bi_aff[si], sj].long()]
+    # scatter the patch rows into the strips
+    strip = blocks.permute(0, 2, 1, 3).reshape(n_aff * br, kb * bw)
+    local = np.searchsorted(bi_np, rows // br) * br + rows % br
+    words = torch.as_tensor(
+        np.asarray(row_words, dtype=np.uint32).view(np.int32)
+        if isinstance(row_words, np.ndarray) else row_words).to(dev)
+    strip[torch.from_numpy(local).to(dev), :kw] = words.reshape(rows.size, kw)
+    blocks = _block_view(strip, br, bw)
+    states = comp.states.clone()
+    states[bi_aff] = _block_states(blocks, fullb)
+
+    # re-compact: untouched strips keep their pool blocks verbatim
+    bi, bj = torch.nonzero(states == MIXED, as_tuple=True)
+    pos = torch.full((mb,), -1, dtype=torch.int64, device=dev)
+    pos[bi_aff] = torch.arange(n_aff, device=dev)
+    touched = pos[bi] >= 0
+    vals = torch.empty((bi.numel(), br, bw), dtype=torch.int32, device=dev)
+    vals[~touched] = comp.pool[comp.slots[bi[~touched],
+                                          bj[~touched]].long()]
+    vals[touched] = blocks[pos[bi[touched]], bj[touched]]
+    return _assemble_blocks(comp.shape, comp.nbits, br, bw, states, vals)
+
+
+def decompress_blocks(comp: BlockCompressed) -> np.ndarray:
+    """Dense packed bit-matrix uint32 ``[M, Kw]`` back from the block form
+    (bit-identical), on the host."""
+    m, kw = comp.shape
+    mb, kb = comp.grid
+    br, bw = comp.br, comp.bw
+    states, slots = comp.states.cpu(), comp.slots.cpu()
+    full = _block_view(_full_rows(torch.arange(mb * br), m, kw, kb * bw,
+                                  comp.nbits), br, bw)
+    blocks = torch.where((states == ALL_ONE)[:, :, None, None], full, 0
+                         ).to(torch.int32)
+    bi, bj = torch.nonzero(states == MIXED, as_tuple=True)
+    blocks[bi, bj] = comp.pool.cpu()[slots[bi, bj].long()]
+    dense = blocks.permute(0, 2, 1, 3).reshape(mb * br, kb * bw)
+    return dense[:m, :kw].contiguous().numpy().view(np.uint32)
 
 
 def _row_offsets(bi: torch.Tensor, mb: int) -> torch.Tensor:

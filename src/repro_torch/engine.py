@@ -17,8 +17,10 @@ over packed int32 words (32 graph bits per word), behind two backends:
   it raises ``DenseCapError``; on the CPU the work falls back to
   ``segment`` with a ``DenseCapWarning``.
 
-``"auto"`` resolves to ``matmul`` on CUDA and ``segment`` on the CPU.  Both
-backends are bit-exact against each other and against the JAX package.
+``"auto"`` resolves to ``matmul`` on CUDA and ``segment`` on the CPU; the
+``REPRO_ENGINE_BACKEND`` environment variable replaces that default (never a
+backend that was asked for by name).  Both backends are bit-exact against
+each other and against the JAX package.
 Each fixpoint is a Python loop with one host sync per round (the JAX
 package runs one device ``while_loop``); converged planes and round counts
 are the same.
@@ -30,7 +32,9 @@ reduction on ``segment``, always through the dense cores.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -38,11 +42,12 @@ import torch
 
 from . import bitset
 from .bitset import resolve_device  # noqa: F401  (re-exported)
-from .compressed import BlockCompressed, compress_blocks
+from .compressed import BlockCompressed, compress_blocks, patch_blocks
 from .graph import Graph, csr_row_edges
 from .kernels import ops
 from .semiring import BOOLEAN, Semiring
 
+ENV_BACKEND = "REPRO_ENGINE_BACKEND"
 BACKENDS = ("segment", "matmul")
 CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
 
@@ -58,8 +63,14 @@ class DenseCapError(RuntimeError):
 
 
 def resolve_backend(requested: str | None, device: torch.device) -> str:
-    """``"auto"``/None -> ``matmul`` on CUDA, ``segment`` on the CPU."""
+    """``"auto"``/None -> ``REPRO_ENGINE_BACKEND`` when it is set, else
+    ``matmul`` on CUDA and ``segment`` on the CPU.  The variable replaces
+    the default only: a backend asked for by name always wins, so backend
+    sweeps and equality checks cannot be collapsed onto one backend by the
+    environment."""
     req = requested or "auto"
+    if req == "auto":
+        req = os.environ.get(ENV_BACKEND, "").strip() or "auto"
     if req == "auto":
         return "matmul" if device.type == "cuda" else "segment"
     if req not in BACKENDS:
@@ -174,18 +185,23 @@ class Engine:
     def __init__(self, graph: Graph, config: EngineConfig = EngineConfig(),
                  device="cuda"):
         self.device = resolve_device(device)
-        self.graph = graph
         self.config = config
-        self._adj: dict[bool, torch.Tensor] = {}
-        self._bcomp: dict[bool, BlockCompressed] = {}
-        self._label_adj: dict[tuple, torch.Tensor] = {}
-        self._rev_graph: Graph | None = None
+        self._attach(graph)
         backend = resolve_backend(config.backend, self.device)
         if backend == "matmul" and not self.dense_fits(
                 graph.n_vertices * bitset.n_words(graph.n_vertices) * 4,
                 "the dense adjacency"):
             backend = "segment"
         self.backend = backend
+
+    def _attach(self, graph: Graph) -> None:
+        """Set what belongs to one graph: the graph, its edge lists on the
+        device, and empty operand caches."""
+        self.graph = graph
+        self._adj: dict[bool, torch.Tensor] = {}
+        self._bcomp: dict[bool, BlockCompressed] = {}
+        self._label_adj: dict[tuple, torch.Tensor] = {}
+        self._rev_graph: Graph | None = None
         self.edge_src = torch.from_numpy(graph.src.astype(np.int64)).to(
             self.device)
         self.edge_dst = torch.from_numpy(graph.indices.astype(np.int64)).to(
@@ -335,6 +351,62 @@ class Engine:
         return _fixpoint(base, lambda r: self.propagate(r, reverse=reverse),
                          max_iters)
 
+    # ------------------------------------------------------------- updates
+    def apply_delta(self, graph: Graph, added: np.ndarray,
+                    removed: np.ndarray, *, device="cuda") -> "Engine":
+        """New engine over the post-update ``graph`` (same vertex set), on
+        this engine's device, with its config and resolved backend.
+
+        ``device`` (the card by default) must be where this engine lives.
+        Cached dense adjacencies are patched, not repacked: the rows whose
+        edge set changed (sources for the forward matrix, destinations for
+        the reverse one) are re-derived from the new CSR and written into
+        a new tensor on the device.  Cached block operands go through
+        ``compressed.patch_blocks``, live lists included.  Label-class
+        stacks are dropped; they rebuild on the next query batch.  This
+        engine and its operands are left as they were."""
+        _check_same_device(self.device, device)
+        if graph.n_vertices != self.graph.n_vertices:
+            raise ValueError("apply_delta requires a fixed vertex set")
+        new = copy.copy(self)   # device, config and resolved backend
+        new._attach(graph)
+        csrs = {False: graph}
+
+        def touched_rows(reverse: bool) -> np.ndarray:
+            col = 1 if reverse else 0
+            return np.unique(np.concatenate(
+                [added[:, col], removed[:, col]])).astype(np.int64)
+
+        def patched_row_bits(reverse: bool, rows: np.ndarray,
+                             kw: int) -> np.ndarray:
+            if reverse not in csrs:
+                csrs[reverse] = graph.reverse()
+            g = csrs[reverse]
+            counts = (g.indptr[rows + 1] - g.indptr[rows]).astype(np.int64)
+            pos = np.repeat(np.arange(rows.shape[0]), counts)
+            eidx = csr_row_edges(g.indptr, rows)
+            rowbits = np.zeros((rows.shape[0], kw), dtype=np.uint32)
+            bitset.set_bits_np(rowbits, (pos,), g.indices[eidx])
+            return rowbits
+
+        for reverse, adj in self._adj.items():
+            rows = touched_rows(reverse)
+            if rows.size == 0:
+                new._adj[reverse] = adj
+                continue
+            rowbits = patched_row_bits(reverse, rows, adj.shape[1])
+            new._adj[reverse] = adj.index_put(
+                (torch.from_numpy(rows).to(self.device),),
+                bitset.np_to_words(rowbits, self.device))
+        for reverse, comp in self._bcomp.items():
+            rows = touched_rows(reverse)
+            if rows.size == 0:
+                new._bcomp[reverse] = comp
+                continue
+            new._bcomp[reverse] = patch_blocks(
+                comp, rows, patched_row_bits(reverse, rows, comp.shape[1]))
+        return new
+
     def _gather_csr(self, reverse: bool) -> Graph:
         """CSR grouped by each round's *gather* endpoint."""
         if reverse:
@@ -381,6 +453,21 @@ class Engine:
             r = r | nxt
             new = nxt
         return r, rounds
+
+
+def _check_same_device(have: torch.device, device) -> None:
+    """Raise unless ``device`` (resolved; the card raises without one) is
+    ``have``.  A device without an index stands for the current card, or
+    for index 0 of any other type."""
+    def norm(d: torch.device) -> torch.device:
+        if d.index is not None:
+            return d
+        return torch.device(d.type, torch.cuda.current_device()
+                            if d.type == "cuda" else 0)
+
+    dev = resolve_device(device)
+    if norm(dev) != norm(have):
+        raise ValueError(f"operands live on {have}, asked to run on {dev}")
 
 
 def make_engine(graph: Graph, backend: str | None = None,

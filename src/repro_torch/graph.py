@@ -42,6 +42,11 @@ class Graph:
         """Destination ids of u's out-edges (int32 view into the CSR)."""
         return self.indices[self.indptr[u]:self.indptr[u + 1]]
 
+    def out_edges(self, u: int) -> tuple[np.ndarray, np.ndarray]:
+        """(destinations, labels) of u's out-edges (int32 CSR views)."""
+        s, e = self.indptr[u], self.indptr[u + 1]
+        return self.indices[s:e], self.labels[s:e]
+
     def reverse(self) -> "Graph":
         """Edge-reversed CSR (sorted by destination)."""
         src = self.src
@@ -69,12 +74,103 @@ class Graph:
             arr = np.zeros((0, 3), dtype=np.int64)
         src, dst, lab = arr[:, 0], arr[:, 1], arr[:, 2]
         order = np.lexsort((dst, src))
-        src, dst, lab = src[order], dst[order], lab[order]
+        return Graph._from_sorted(n_vertices, n_labels, src[order],
+                                  dst[order], lab[order])
+
+    @staticmethod
+    def _from_sorted(n_vertices: int, n_labels: int, src: np.ndarray,
+                     dst: np.ndarray, lab: np.ndarray) -> "Graph":
+        """CSR assembly from already (src, dst, lab)-sorted, deduped
+        int64 edge arrays (the fast path ``apply_updates`` uses)."""
         indptr = np.zeros(n_vertices + 1, dtype=np.int64)
         np.add.at(indptr, src + 1, 1)
         indptr = np.cumsum(indptr)
         return Graph(n_vertices, n_labels, indptr.astype(np.int32),
                      dst.astype(np.int32), lab.astype(np.int32))
+
+    # ------------------------------------------------------------- updates
+    def _edge_keys(self, arr: np.ndarray) -> np.ndarray:
+        """Encode ``[N, 3]`` (src, dst, lab) rows as sortable int64 keys
+        ordered exactly like the CSR edge order (src-major, then dst,
+        then label)."""
+        v = np.int64(max(self.n_vertices, 1))
+        l = np.int64(max(self.n_labels, 1))
+        return (arr[:, 0] * v + arr[:, 1]) * l + arr[:, 2]
+
+    def _decode_keys(self, keys: np.ndarray) -> tuple[np.ndarray,
+                                                      np.ndarray,
+                                                      np.ndarray]:
+        v = np.int64(max(self.n_vertices, 1))
+        l = np.int64(max(self.n_labels, 1))
+        lab = keys % l
+        uv = keys // l
+        return uv // v, uv % v, lab
+
+    def apply_updates(self, edges_added: Iterable = (),
+                      edges_removed: Iterable = ()) -> "GraphDelta":
+        """Apply a batch of edge insertions/deletions; returns a
+        ``GraphDelta`` holding the post-update graph plus the *effective*
+        delta (int64 ``[N, 3]`` (src, dst, label) rows).
+
+        Set semantics: removals are applied first, then additions —
+        adding an existing edge or removing a missing one is a no-op, and
+        an edge both removed and added survives.  ``delta.added`` /
+        ``delta.removed`` record only real changes (``new - old`` /
+        ``old - new``), so ``tdr_build.update_index`` never
+        over-invalidates on no-ops.  Vertex and label universes are
+        fixed: endpoints must lie in ``[0, n_vertices)`` and labels in
+        ``[0, n_labels)``.
+        """
+        def as_rows(edges):
+            rows = np.asarray(list(edges), dtype=np.int64)
+            rows = rows.reshape(-1, 3) if rows.size else np.zeros(
+                (0, 3), dtype=np.int64)
+            if rows.size and (
+                    rows[:, :2].min(initial=0) < 0
+                    or rows[:, :2].max(initial=0) >= self.n_vertices
+                    or rows[:, 2].min(initial=0) < 0
+                    or rows[:, 2].max(initial=0) >= self.n_labels):
+                raise ValueError(
+                    f"edge update outside the graph's universe "
+                    f"(|V|={self.n_vertices}, |L|={self.n_labels})")
+            return rows
+
+        add = as_rows(edges_added)
+        rem = as_rows(edges_removed)
+        old_k = self._edge_keys(
+            np.stack([self.src.astype(np.int64),
+                      self.indices.astype(np.int64),
+                      self.labels.astype(np.int64)], axis=1)
+            if self.n_edges else np.zeros((0, 3), np.int64))
+        new_k = np.union1d(np.setdiff1d(old_k, self._edge_keys(rem)),
+                           self._edge_keys(add))
+        added_eff = np.setdiff1d(new_k, old_k)
+        removed_eff = np.setdiff1d(old_k, new_k)
+        src, dst, lab = self._decode_keys(new_k)   # union1d is sorted
+        g2 = Graph._from_sorted(self.n_vertices, self.n_labels, src, dst,
+                                lab)
+        return GraphDelta(
+            graph=g2,
+            added=np.stack(self._decode_keys(added_eff), axis=1),
+            removed=np.stack(self._decode_keys(removed_eff), axis=1))
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphDelta:
+    """Effective result of one ``Graph.apply_updates`` call.
+
+    ``graph`` is the post-update graph; ``added``/``removed`` are int64
+    ``[N, 3]`` (src, dst, label) rows of the edges that actually changed
+    (no-op adds/removes are filtered out).  This is the unit
+    ``tdr_build.update_index`` consumes.
+    """
+    graph: Graph
+    added: np.ndarray     # int64 [Na, 3]
+    removed: np.ndarray   # int64 [Nr, 3]
+
+    @property
+    def n_changes(self) -> int:
+        return int(self.added.shape[0] + self.removed.shape[0])
 
 
 # ------------------------------------------------- subgraph/layout helpers

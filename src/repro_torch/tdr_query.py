@@ -724,17 +724,14 @@ def _executor(index: TDRIndex, eng: "engine_mod.Engine") -> ExactExecutor:
 # ----------------------------------------------------------------- driver
 def _check_device(index: TDRIndex, device) -> None:
     """Raise unless ``device`` (default: the card) is where the index is."""
-    dev = engine_mod.resolve_device(device)
-    have = index.device
-    if dev.type != have.type or (dev.index is not None
-                                 and dev.index != have.index):
-        raise ValueError(f"index lives on {have}, asked to answer on {dev}")
+    engine_mod._check_same_device(index.device, device)
 
 
 def answer_batch(index: TDRIndex,
                  queries: Sequence[tuple[int, int, pat.Pattern]],
                  *, max_m: int = 4, exact_chunk: int = 32,
                  stats: QueryStats | None = None,
+                 filters_only: bool = False,
                  backend: str | None = None,
                  exact_mode: str = "auto",
                  engine_config: "engine_mod.EngineConfig | None" = None,
@@ -742,18 +739,22 @@ def answer_batch(index: TDRIndex,
     """Answer a batch of PCR queries.  Returns bool [n_queries].
 
     ``device`` defaults to the card and must be where ``index`` lives
-    (pass ``device="cpu"`` for an index built on the CPU)."""
+    (pass ``device="cpu"`` for an index built on the CPU).
+    ``filters_only`` stops after the phase-1 cascade (see
+    ``answer_plan``)."""
     t0 = time.perf_counter()
     _check_device(index, device)
     plan = compile_queries(index, queries, max_m=max_m, stats=stats)
     return answer_plan(index, plan, exact_chunk=exact_chunk, stats=stats,
-                       backend=backend, exact_mode=exact_mode,
-                       engine_config=engine_config, _t0=t0)
+                       filters_only=filters_only, backend=backend,
+                       exact_mode=exact_mode, engine_config=engine_config,
+                       _t0=t0)
 
 
 def answer_plan(index: TDRIndex, plan: QueryPlan,
                 *, exact_chunk: int = 32,
                 stats: QueryStats | None = None,
+                filters_only: bool = False,
                 backend: str | None = None,
                 exact_mode: str = "auto",
                 engine_config: "engine_mod.EngineConfig | None" = None,
@@ -765,7 +766,10 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     ``exact_mode`` picks the phase-2 executor: "auto" (corridor-compacted
     whenever the padded corridor bucket is smaller than V), "compact"
     (force compaction) or "full" (full graph).  The job axis is padded
-    onto the ``{2^k, 3·2^(k-1)}`` grid from 16 up, as in the reference."""
+    onto the ``{2^k, 3·2^(k-1)}`` grid from 16 up, as in the reference.
+    ``filters_only`` returns right after phase 1 with every UNKNOWN job
+    counted as reachable: an upper bound of the answers, which measures
+    the cascade's pruning."""
     if plan.max_m > 5:
         raise ValueError(
             f"max_m={plan.max_m}: the packed executor holds subset states "
@@ -809,6 +813,9 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     pending = np.flatnonzero((verdict == UNKNOWN) & real)
     # jobs whose query is already TRUE need no exact work
     pending = pending[~answers[plan_p.qid[pending]]]
+    if filters_only:
+        np.logical_or.at(answers, plan_p.qid[pending], True)
+        return answers
     stats.exact_jobs += len(pending)
     stats.exact_qids = np.unique(plan_p.qid[pending]).tolist()
     if len(pending) == 0:

@@ -175,3 +175,144 @@ def test_edgeless_and_layout_pinned_build():
                          RB.TDRConfig(**CFG), layout=layout)
     np.testing.assert_array_equal(bitset.words_to_np(pinned.n_out),
                                   np.asarray(ref.n_out))
+
+
+# ------------------------------------- twins of the reference's index tests
+@pytest.mark.parametrize("backend", ["segment", "matmul"])
+def test_index_size_accounting(backend):
+    """``size_bytes`` (both accountings) and ``index_memory_stats`` equal
+    the JAX package's for the same graph, and logical <= dense."""
+    g = G.erdos_renyi(100, 3.0, 4, seed=0)
+    rg = RG.erdos_renyi(100, 3.0, 4, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),
+                                backend=backend, device="cpu")
+    ridx = RB.build_index(rg, RB.TDRConfig(**CFG), backend="segment")
+    logical = idx.size_bytes(logical=True)
+    dense = idx.size_bytes(logical=False)
+    assert 0 < logical <= dense
+    assert (logical, dense) == (ridx.size_bytes(logical=True),
+                                ridx.size_bytes(logical=False))
+    assert idx.index_memory_stats() == ridx.index_memory_stats()
+    # summary flags and memory stats read one compressed-plane cache
+    comp = idx.compressed_planes()
+    assert set(comp) == set(idx.plane_specs()) == {
+        "h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in", "r_vtx",
+        "r_lab", "r_in"}
+    assert set(idx.aux_plane_specs()) == {"base_v", "base_l", "base_r",
+                                          "d_vtx", "d_lab"}
+    assert idx._comp["n_out"] is comp["n_out"]
+    flags = idx.summary_flags()
+    assert (flags["sat_out"] == (comp["n_out"].row_states
+                                 == compressed.ALL_ONE)).all()
+
+
+def test_index_size_scales_linearly():
+    """O(V) index against the O(V^2) closure: doubling V grows the index
+    about 2x (not 4x)."""
+    cfg = tdr_build.TDRConfig(vtx_bits=128, g_max=4, k=3)
+    s1 = tdr_build.build_index(G.erdos_renyi(300, 2.0, 8, seed=1), cfg,
+                               device="cpu").size_bytes()
+    s2 = tdr_build.build_index(G.erdos_renyi(600, 2.0, 8, seed=1), cfg,
+                               device="cpu").size_bytes()
+    assert s2 < 2.8 * s1
+    v_paper = 200_000
+    assert s2 / 600 * v_paper < v_paper * v_paper / 8 / 100
+
+
+def test_hash_schedule_never_wraps():
+    """All n_hashes Bloom position arrays are pairwise distinct and equal
+    the JAX package's; the first three keys are the historical ones."""
+    disc = np.arange(200, dtype=np.int64)
+    for scheme in ("dfs-block", "mult"):
+        cfg = tdr_build.TDRConfig(vtx_bits=256, n_hashes=8,
+                                  hash_scheme=scheme)
+        pos = tdr_build._vertex_hash_positions(cfg, disc)
+        want = RB._vertex_hash_positions(
+            RB.TDRConfig(vtx_bits=256, n_hashes=8, hash_scheme=scheme), disc)
+        assert len(pos) == 8
+        for i in range(len(pos)):
+            np.testing.assert_array_equal(pos[i], want[i])
+            for j in range(i + 1, len(pos)):
+                assert not np.array_equal(pos[i], pos[j]), (scheme, i, j)
+    ks = tdr_build._hash_keys(3)
+    assert [int(k) for k in ks] == [0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F,
+                                    0x165667B19E3779F9]
+    assert [int(k) for k in tdr_build._hash_keys(9)] == \
+        [int(k) for k in RB._hash_keys(9)]
+
+
+def test_backend_env_override(monkeypatch):
+    """``REPRO_ENGINE_BACKEND`` replaces the default resolution only, with
+    the port's backend names; a backend asked for by name always wins."""
+    cpu = torch.device("cpu")
+    monkeypatch.setenv(engine.ENV_BACKEND, "matmul")
+    assert engine.resolve_backend("auto", cpu) == "matmul"
+    assert engine.resolve_backend("", cpu) == "matmul"
+    assert engine.resolve_backend(None, cpu) == "matmul"
+    assert engine.resolve_backend("segment", cpu) == "segment"
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
+                                device="cpu")
+    assert idx.engine().backend == "matmul"
+    monkeypatch.setenv(engine.ENV_BACKEND, "segment")
+    assert engine.resolve_backend("matmul", cpu) == "matmul"
+    assert engine.resolve_backend("auto", cpu) == "segment"
+    assert engine.resolve_backend("auto", torch.device("cuda")) == "segment"
+    monkeypatch.setenv(engine.ENV_BACKEND, "pallas")
+    with pytest.raises(ValueError):
+        engine.resolve_backend("auto", cpu)
+    monkeypatch.delenv(engine.ENV_BACKEND)
+    assert engine.resolve_backend("auto", cpu) == "segment"
+    assert engine.resolve_backend("auto", torch.device("cuda")) == "matmul"
+    with pytest.raises(ValueError):
+        engine.resolve_backend("mxu", cpu)
+
+
+def test_incidence_plan_matches_bruteforce():
+    """One- and two-level padded incidence reduce to the same segment OR
+    (two-level triggers on the pa graph's hub tail)."""
+    rng = np.random.default_rng(0)
+    levels_seen = set()
+    for kind in ("er", "pa"):
+        g = G.random_graph(kind, 400, 4.0, 4, seed=0)
+        keys = np.asarray(g.indices)
+        plan = G.incidence_plan(keys, g.n_vertices, g.n_edges)
+        levels_seen.add(len(plan))
+        val = rng.integers(0, 2 ** 32, (g.n_edges + 1, 2), dtype=np.uint32)
+        val[-1] = 0
+        cur = val
+        for level in plan:
+            nxt = np.zeros((level.shape[0], 2), np.uint32)
+            ok = level < cur.shape[0]
+            for i in range(level.shape[0]):
+                nxt[i] = np.bitwise_or.reduce(cur[level[i][ok[i]]], axis=0)
+            cur = np.concatenate([nxt, np.zeros((1, 2), np.uint32)])
+        want = np.zeros((g.n_vertices, 2), np.uint32)
+        np.bitwise_or.at(want, keys, val[:g.n_edges])
+        np.testing.assert_array_equal(cur[:g.n_vertices], want, err_msg=kind)
+    assert levels_seen == {1, 2}, \
+        "expected er to stay one-level and pa's hubs to trigger two-level"
+
+
+def test_label_adjacency_cache_is_bounded():
+    g = G.erdos_renyi(40, 2.0, 8, seed=0)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    for l in range(8):
+        eng.label_class_adjacency((l,))
+    assert len(eng._label_adj) <= engine.Engine.LABEL_ADJ_CACHE
+
+
+def test_index_caches_engines_and_adjacency():
+    g = G.erdos_renyi(30, 2.0, 4, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),
+                                backend="matmul", device="cpu")
+    assert idx.engine("matmul") is idx.engine("matmul")
+    adj = idx.engine("matmul").adjacency()
+    assert adj is idx.engine("matmul").adjacency()
+    # adjacency row u holds exactly u's successors
+    bits = np.unpackbits(bitset.words_to_np(adj).view(np.uint8), axis=1,
+                         bitorder="little")
+    for u in range(g.n_vertices):
+        np.testing.assert_array_equal(
+            np.flatnonzero(bits[u][:g.n_vertices]),
+            np.unique(g.successors(u)))

@@ -5,12 +5,14 @@ backend and the DFS oracle.  Exact equality (the data is bits).
 These tests import no JAX, so they run where the card is:
 ``python -m pytest tests/test_torch_cuda.py -q``.  Without a card they
 skip."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import (bitset, compressed, dfs_baseline, engine,
-                         graph as G, pattern, tdr_build, tdr_query)
+from repro_torch import (bitset, compressed, deltalog, dfs_baseline, engine,
+                         graph as G, pattern, snapshot, tdr_build, tdr_query)
 from repro_torch.kernels import ops, ref
 
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
@@ -496,3 +498,141 @@ def test_dist_dense_cap_on_the_card_raises(cuda):
     qs = [(u, (u * 7 + 3) % 300, pattern.all_of([0, 1])) for u in range(64)]
     with pytest.raises(engine.DenseCapError):
         tdr_query.dist_batch(idx, qs, engine_config=ecfg, exact_mode="full")
+
+
+# ------------------------------------------------------------ live index
+BLOCK_FIELDS = ("states", "slots", "pool", "mix_bi", "mix_bj", "mix_off",
+                "one_off", "one_bj")
+ALL_PLANES = PLANES + ("push", "pop", "g_count", "base_v", "base_l",
+                       "base_r", "r_vtx", "r_lab", "r_in", "d_vtx", "d_lab")
+
+
+def _assert_blocks_equal(a, b):
+    assert (a.shape, a.nbits, a.br, a.bw, a.n_mixed) == \
+        (b.shape, b.nbits, b.br, b.bw, b.n_mixed)
+    for f in BLOCK_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.device == y.device and x.dtype == y.dtype, f
+        assert torch.equal(x, y), f
+
+
+def _patch_case(seed, br, bw, dev):
+    """A matrix with ONE, ZERO and MIXED blocks, a patch of some of its
+    rows (some rows zeroed, some filled) and the patched matrix."""
+    rng = np.random.default_rng(seed)
+    m, kw, nbits = 203, 7, 210
+    a = rng.random((m, kw * 32)) < 0.05
+    a[:16] = True
+    a[32:40] = False
+    a[:, nbits:] = False
+    sel = np.sort(rng.choice(m, size=int(rng.integers(1, 60)),
+                             replace=False))
+    new = rng.random((sel.size, kw * 32)) < 0.05
+    new[::3] = True
+    new[1::5] = False
+    new[:, nbits:] = False
+    a2 = a.copy()
+    a2[sel] = new
+    a_p, new_p, a2_p = (bitset.pack_bits_np(x) for x in (a, new, a2))
+    comp = compressed.compress_blocks(a_p, br=br, bw=bw, nbits=nbits,
+                                      device=dev)
+    return comp, sel, new_p, a2_p, nbits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br,bw", [(8, 1), (4, 2), (16, 1)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_patch_blocks_on_card_matches_compress(cuda, br, bw, seed):
+    """``patch_blocks`` on the card == ``compress_blocks`` of the patched
+    matrix on the card, in every field (the kernel's live lists too), and
+    B3 over the patched operand equals its plain version and dense B1."""
+    comp, sel, new_p, a2_p, nbits = _patch_case(seed, br, bw, cuda)
+    got = compressed.patch_blocks(comp, sel, new_p)
+    _assert_blocks_equal(got, compressed.compress_blocks(
+        a2_p, br=br, bw=bw, nbits=nbits, device=cuda))
+    rng = np.random.default_rng(seed + 10)
+    x = bitset.np_to_words(_words(rng, nbits, 8), cuda)
+    n0 = ops.KERNEL_LAUNCHES["block_sparse_matmul"]
+    out = ops.frontier_step_sparse(got, x)
+    assert ops.KERNEL_LAUNCHES["block_sparse_matmul"] == n0 + 1
+    got_h = dataclasses.replace(got, **{f: getattr(got, f).cpu()
+                                        for f in BLOCK_FIELDS})
+    want = ref.block_sparse_matmul_ref(got_h, x.cpu())
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(want, ref.bitset_matmul_ref(
+        bitset.np_to_words(a2_p, "cpu"), ref.pad_k(x.cpu(),
+                                                   a2_p.shape[1] * 32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["matmul", "segment"])
+def test_update_interleavings_on_card(cuda, backend):
+    """A few ``update_index`` chains on the card (matmul: warm block-sparse
+    closures over the patched operands) == pinned rebuilds on the card;
+    the patched block operands == fresh ones; answers == the oracle."""
+    n_v, n_l = 300, 6
+    for trial in range(4):
+        rng = np.random.default_rng(40 + trial)
+        g = G.random_graph(["er", "pa"][trial % 2], n_v, 1.5, n_l,
+                           seed=trial)
+        cfg = tdr_build.TDRConfig(vtx_bits=64)
+        idx0 = cur = tdr_build.build_index(g, cfg, backend=backend)
+        n_b3 = 0   # launches inside update_index alone
+        for step in range(3):
+            edges = list(zip(cur.graph.src.tolist(),
+                             cur.graph.indices.tolist(),
+                             cur.graph.labels.tolist()))
+            add = [(int(rng.integers(n_v)), int(rng.integers(n_v)),
+                    int(rng.integers(n_l))) for _ in range(6)]
+            add = [e for e in add if e[0] != e[1]]
+            rem = [edges[int(i)] for i in rng.integers(len(edges), size=2)] \
+                if step == 2 else []
+            delta = cur.graph.apply_updates(add, rem)
+            st = tdr_build.UpdateStats()
+            before = ops.KERNEL_LAUNCHES["block_sparse_matmul"]
+            cur = tdr_build.update_index(cur, delta, backend=backend,
+                                         rebuild_threshold=2.0, stats=st)
+            n_b3 += ops.KERNEL_LAUNCHES["block_sparse_matmul"] - before
+            assert st.mode == "incremental", st
+            if backend == "matmul":
+                for rev, comp in cur.engine(backend)._bcomp.items():
+                    _assert_blocks_equal(comp, compressed.compress_blocks(
+                        engine.pack_adjacency_np(cur.graph, reverse=rev),
+                        nbits=n_v, device=cuda))
+        ref_idx = tdr_build.build_index(cur.graph, cfg, backend=backend,
+                                        layout=idx0.disc)
+        for f in ALL_PLANES:
+            assert torch.equal(getattr(cur, f), getattr(ref_idx, f)), f
+        if backend == "matmul":
+            assert n_b3 > 0
+        qs = [(int(rng.integers(n_v)), int(rng.integers(n_v)),
+               pattern.all_of(rng.choice(n_l, 2, replace=False).tolist()))
+              for _ in range(24)]
+        got = tdr_query.answer_batch(cur, qs, backend=backend)
+        assert got.tolist() == [dfs_baseline.answer_pcr(cur.graph, u, v, p)
+                                for u, v, p in qs]
+
+
+@pytest.mark.gpu
+def test_snapshot_roundtrip_on_card(cuda, tmp_path):
+    """A snapshot saved from the card loads back onto the card
+    bit-identically; replaying a logged update through it equals the live
+    update."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=2)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64))
+    path = str(tmp_path / "snap.tdr")
+    snapshot.save_index(idx, path, lsn=0)
+    back, lsn = snapshot.load_index(path)
+    assert lsn == 0
+    for f in ALL_PLANES:
+        t = getattr(back, f)
+        assert t.is_cuda and t.dtype == torch.int32, f
+        assert torch.equal(t, getattr(idx, f)), f
+    delta = g.apply_updates([(0, 5, 1), (7, 9, 2)], [])
+    with deltalog.DeltaLog(str(tmp_path / "wal")) as log:
+        log.append(delta.added, delta.removed)
+        (_, a, r), = log.replay(lsn)
+    live = tdr_build.update_index(idx, delta)
+    rec = tdr_build.update_index(back, back.graph.apply_updates(a, r))
+    for f in ALL_PLANES:
+        assert torch.equal(getattr(rec, f), getattr(live, f)), f

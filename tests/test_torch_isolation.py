@@ -9,14 +9,16 @@ import sys
 import pytest
 import torch
 
-from repro_torch import (compressed, engine, graph as G, pattern, tdr_build,
-                         tdr_query)
+from repro_torch import (compressed, engine, graph as G, pattern, snapshot,
+                         tdr_build, tdr_query)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
-           "repro_torch.convert", "repro_torch.dfs_baseline",
+           "repro_torch.convert", "repro_torch.deltalog",
+           "repro_torch.dfs_baseline",
            "repro_torch.engine", "repro_torch.graph", "repro_torch.lcr",
            "repro_torch.pattern", "repro_torch.semiring",
+           "repro_torch.snapshot",
            "repro_torch.tdr_build", "repro_torch.tdr_query",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.bitset_matmul",
@@ -105,3 +107,29 @@ def test_kind_entry_points_refuse_the_cpu_by_default(entry):
                 idx, [(0, 1, p, "dist")])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize("entry", ["load_index", "update_index",
+                                   "apply_delta"])
+def test_live_index_entry_points_refuse_the_cpu_by_default(entry, tmp_path):
+    """The live index defaults to the card too: a snapshot loads onto it,
+    and an update or an engine patch runs where the index lives only when
+    that is the card, unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
+                                backend="matmul", device="cpu")
+    path = str(tmp_path / "snap.tdr")
+    snapshot.save_index(idx, path)
+    delta = g.apply_updates([(0, 1, 2)], [])
+    eng = idx.engine("matmul")
+    call = {"load_index": lambda **kw: snapshot.load_index(path, **kw)[0],
+            "update_index": lambda **kw: tdr_build.update_index(
+                idx, delta, backend="matmul", **kw),
+            "apply_delta": lambda **kw: eng.apply_delta(
+                delta.graph, delta.added, delta.removed, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    out = call(device="cpu")
+    assert out.device == torch.device("cpu")

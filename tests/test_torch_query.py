@@ -215,3 +215,166 @@ def test_query_plan_matches_reference():
                                       err_msg=f)
     padded = plan.pad_to(64)
     assert padded.n_jobs == 64 and padded.qid[-1] == -1
+
+
+# ------------------------------------- twins of the reference's query tests
+@pytest.fixture(scope="module")
+def fig2():
+    g = G.fig2_example()
+    return g, tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32,
+                                                           g_max=2, k=2),
+                                    device="cpu")
+
+
+def test_paper_example1(fig2):
+    g, idx = fig2
+    # v0 -(b AND d)-> v5 : true via path a,d,b
+    assert tdr_query.answer(idx, 0, 5, pattern.all_of([1, 3]),
+                            device="cpu") is True
+    # v0 -NOT{a,b}-> v4 : false (all paths to v4 carry b)
+    assert tdr_query.answer(idx, 0, 4, pattern.none_of([0, 1]),
+                            device="cpu") is False
+
+
+def test_paper_example3(fig2):
+    g, idx = fig2
+    assert tdr_query.answer(idx, 7, 4, pattern.none_of([0]),
+                            device="cpu") is False
+    assert tdr_query.answer(idx, 0, 6, pattern.all_of([1, 4]),
+                            device="cpu") is True
+
+
+def test_self_query(fig2):
+    g, idx = fig2
+    assert tdr_query.answer(idx, 3, 3, pattern.none_of([0]),
+                            device="cpu") is True
+    assert tdr_query.answer(idx, 3, 3, pattern.all_of([0]),
+                            device="cpu") is False
+
+
+@pytest.mark.parametrize("seed,kind", [(0, "er"), (17, "pa"), (301, "er"),
+                                       (4242, "pa")])
+def test_tdr_matches_oracle(seed, kind):
+    rng = np.random.default_rng(seed)
+    g = G.random_graph(kind, 40, 2.0, 4, seed=seed)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    qs = _patterns(pattern, _specs(rng, 40, 4, 20), 4)
+    got = tdr_query.answer_batch(idx, qs, device="cpu")
+    assert got.tolist() == [dfs_baseline.answer_pcr(g, u, v, p)
+                            for u, v, p in qs]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 23, 977])
+def test_filters_are_sound(seed):
+    """Phase-1 filters alone (UNKNOWN -> true) over-approximate: never
+    reject a truly reachable query; and the upper bound, with its phase-1
+    counts, equals the JAX package's ``filters_only`` on both backends."""
+    rng = np.random.default_rng(seed)
+    g = G.erdos_renyi(40, 2.5, 4, seed=seed)
+    rg = RG.erdos_renyi(40, 2.5, 4, seed=seed)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    ridx = RB.build_index(rg, RB.TDRConfig(**CFG), backend="segment")
+    specs = _specs(rng, 40, 4, 20)
+    rst = RQ.QueryStats()
+    r_upper = RQ.answer_batch(ridx, _patterns(RP, specs, 4),
+                              filters_only=True, stats=rst)
+    want = [dfs_baseline.answer_pcr(g, u, v, p)
+            for u, v, p in _patterns(pattern, specs, 4)]
+    for backend in BACKENDS:
+        st = tdr_query.QueryStats()
+        upper = tdr_query.answer_batch(idx, _patterns(pattern, specs, 4),
+                                       filters_only=True, backend=backend,
+                                       stats=st, device="cpu")
+        assert upper.tolist() == r_upper.tolist(), backend
+        for ub, w in zip(upper.tolist(), want):
+            if w:
+                assert ub, "filter cascade produced a false negative"
+        assert (st.filter_false, st.filter_true, st.exact_jobs) == \
+            (rst.filter_false, rst.filter_true, rst.exact_jobs) == \
+            (st.filter_false, st.filter_true, 0)
+
+
+def test_stats_pruning_happens():
+    g = G.erdos_renyi(60, 1.2, 4, seed=3)   # sparse -> most pairs failing
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    qs = _patterns(pattern, _specs(np.random.default_rng(0), 60, 4, 60), 4)
+    stats = tdr_query.QueryStats()
+    tdr_query.answer_batch(idx, qs, stats=stats, device="cpu")
+    assert stats.filter_false > 0          # the index prunes something
+    assert stats.exact_jobs < stats.n_jobs
+
+
+@pytest.fixture(scope="module")
+def medium():
+    g = G.erdos_renyi(300, 2.0, 8, seed=42)
+    return g, tdr_build.build_index(
+        g, tdr_build.TDRConfig(vtx_bits=128, g_max=4, k=3), device="cpu")
+
+
+def test_end_to_end_mixed_batch(medium):
+    g, idx = medium
+    rng = np.random.default_rng(0)
+    queries = []
+    for i in range(60):
+        u = int(rng.integers(g.n_vertices))
+        v = int(rng.integers(g.n_vertices))
+        labs = rng.choice(g.n_labels, size=3, replace=False).tolist()
+        p = [pattern.all_of(labs[:2]), pattern.any_of(labs),
+             pattern.none_of(labs[:1]),
+             pattern.parse(f"(l{labs[0]} | l{labs[1]}) & !l{labs[2]}")
+             ][i % 4]
+        queries.append((u, v, p))
+    stats = tdr_query.QueryStats()
+    got = tdr_query.answer_batch(idx, queries, stats=stats, device="cpu")
+    assert got.tolist() == [dfs_baseline.answer_pcr(g, u, v, p)
+                            for u, v, p in queries]
+    assert stats.n_queries == 60
+
+
+def test_index_is_refutation_machine(medium):
+    """Paper §VI-C: the filter cascade resolves a large share of
+    unreachable pairs without any exact search."""
+    g, idx = medium
+    rng = np.random.default_rng(1)
+    queries = [(int(rng.integers(g.n_vertices)),
+                int(rng.integers(g.n_vertices)), pattern.none_of([0]))
+               for _ in range(100)]
+    stats = tdr_query.QueryStats()
+    tdr_query.answer_batch(idx, queries, stats=stats, device="cpu")
+    assert stats.filter_false >= stats.n_jobs * 0.3, stats
+
+
+def test_fixpoint_rounds_bounded(medium):
+    g, idx = medium
+    assert 0 < idx.fixpoint_rounds <= g.n_vertices
+
+
+def test_special_labels_multiword():
+    """The forbidden-label extraction reads every word of the packed raw
+    plane (labels >= 32 live past the first word)."""
+    g = G.erdos_renyi(30, 2.0, 70, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64),
+                                device="cpu")
+    qs = [(0, 5, pattern.none_of([0, 33, 69])),
+          (1, 7, pattern.all_of([2, 40])),
+          (2, 9, pattern.parse("l5 & !l64"))]
+    plan = tdr_query.compile_queries(idx, qs)
+    ex = tdr_query.ExactExecutor(idx, idx.engine("segment"))
+    jobs = np.arange(plan.n_jobs)
+    assert ex.special_labels(plan, jobs) == (0, 2, 5, 33, 40, 64, 69)
+    # single-job slices see only their own labels
+    assert ex.special_labels(plan, np.array([0])) == (0, 33, 69)
+
+
+def test_segment_backend_launches_no_kernel():
+    """The segment backend is plain torch: build and answer launch no
+    kernel (``ops.KERNEL_LAUNCHES`` stays as it was)."""
+    from repro_torch.kernels import ops
+    g = G.erdos_renyi(40, 2.0, 4, seed=1)
+    before = dict(ops.KERNEL_LAUNCHES)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),
+                                backend="segment", device="cpu")
+    tdr_query.answer_batch(
+        idx, _patterns(pattern, _specs(np.random.default_rng(1), 40, 4, 10),
+                       4), backend="segment", device="cpu")
+    assert dict(ops.KERNEL_LAUNCHES) == before
