@@ -72,6 +72,34 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    ``save_index`` of the built index at LSN 0 under ``build/``, the three
    deltas in a ``DeltaLog``, ``load_index`` onto the card and replay
    through ``update_index`` equal to the chained index.
+8. Regular path queries on the built index: 128 regexes from
+   ``default_rng(3)`` (32 in the lowered fragment ``(la | lb)*``, 64 on
+   the product route ``la (lb | lc)* ld`` / ``(la lb)+`` / ``lc+ ld?``,
+   16 nullable ``(la lb)*`` at ``u == v``, 16 infeasible
+   ``la l16 lb``) through ``rpq_batch`` with the default backend
+   (``matmul``) and with ``segment``, at ``exact_mode`` ``auto`` and
+   ``full``, launch counts set to 0 just before each matmul run and read
+   just after: equal answers everywhere, 24 equal the product-BFS oracle
+   (16 from the product route), ``bitset_matmul`` launched; the product
+   route alone for its rounds, with a spy recording one NFA-state
+   frontier ``[32768, 32]`` and its class matrix, on which B1 is checked
+   against its plain version; ``torch.profiler`` for the idle share.
+9. Serving: a ``QueryServer`` on the built index (``backend="matmul"``,
+   ``ServeConfig()`` defaults), persisted under ``build/``, warmed up on
+   ``mixed_pool(g, 256, seed=4)``; 32 closed-loop clients submit 2,048
+   requests with ``with_lsn`` (1,536 bool, 192 dist with k = 8, 192
+   rpq, 64 witness, 64 count with hops = 6) while phase 7's batch (a)
+   goes through ``submit_update`` midway, launch counts set to 0 just
+   before the traffic and read just after (B1, B2, B3 and B4 must have
+   run).  Every answer equals a direct segment-backend call on the index
+   of its LSN (a witness replays at the segment distance);
+   ``engine.jit_cache_entries`` does not move after warmup, and no batch
+   is unpinned or overflows; ``QueryServer.recover`` onto the card
+   equals the live index on every plane.  The count requests are dealt
+   first: past 131,072 edges (after the update) ``count_routes`` refuses
+   the default cap, by the reference's rule.  A profiled burst of a
+   quarter of the mix, without count requests, gives the device's idle
+   share.
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -113,6 +141,11 @@ ALL_PLANES = PLANES + ("push", "pop", "g_count", "base_v", "base_l",
 N_INSERTS = 256                # live-index batch (a)
 N_RELABELS = 64                # live-index batch (b)
 N_DELETES = 64                 # live-index batch (c)
+N_RPQ_ORACLE = 24              # rpq answers held to the product-BFS oracle
+N_CLIENTS = 32                 # serving phase: closed-loop client threads
+SERVE_MIX = (("bool", 1536), ("dist", 192), ("rpq", 192), ("witness", 64),
+             ("count", 64))    # serving phase: requests per kind
+SERVE_HOPS, SERVE_K = 6, 8
 
 
 def fail(msg: str) -> int:
@@ -395,6 +428,348 @@ def live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries, b3_row,
         return f"snapshot + replay planes {bad} differ from the chained index"
     if rec.device.type != "cuda":
         return f"the snapshot loaded onto {rec.device}"
+    return None
+
+
+def make_rpq_queries(rpq, n_vertices: int, n_labels: int, seed: int):
+    """128 regexes with uniform random endpoints: 32 in the lowered
+    fragment, 64 on the product route, 16 nullable at ``u == v`` and 16
+    needing a label no edge carries."""
+    rng = np.random.default_rng(seed)
+
+    def labs(k):
+        return [int(x) for x in rng.choice(n_labels, size=k, replace=False)]
+
+    def ends():
+        return tuple(int(x) for x in rng.integers(0, n_vertices, size=2))
+
+    qs = [ends() + (rpq.parse("(l{} | l{})*".format(*labs(2))),)
+          for _ in range(32)]
+    product = ("l{} (l{} | l{})* l{}", "(l{} l{})+", "l{}+ l{}?")
+    qs += [ends() + (rpq.parse(product[i % 3].format(*labs(4))),)
+           for i in range(64)]
+    for _ in range(16):
+        u = int(rng.integers(n_vertices))
+        qs.append((u, u, rpq.parse("(l{} l{})*".format(*labs(2)))))
+    qs += [ends() + (rpq.parse("l{} l%d l{}".format(*labs(2)) % n_labels),)
+           for _ in range(16)]
+    return qs
+
+
+def rpq_phase(torch, g, idx, record) -> str | None:
+    """Phase 8: ``rpq_batch`` on both backends and two exact modes, the
+    oracle, the product route's rounds, B1 on one NFA-state frontier.
+    Returns a failure message, or None."""
+    from repro_torch import bitset, dfs_baseline, rpq, tdr_query
+    from repro_torch.kernels import ops, ref
+    qs = make_rpq_queries(rpq, g.n_vertices, g.n_labels, seed=3)
+    rows = [tdr_query.rpq_rows(idx, r) for _, _, r in qs]
+    route = ["lowered" if rw.lowered is not None
+             else "nullable" if u == v and rw.nullable
+             else "product" if rw.feasible else "infeasible"
+             for (u, v, _), rw in zip(qs, rows)]
+    print("rpq: routes " + ", ".join(
+        f"{k} {route.count(k)}" for k in ("lowered", "product", "nullable",
+                                          "infeasible")))
+    runs = {}
+    for backend in (None, "segment"):
+        for mode in ("auto", "full"):
+            st = tdr_query.QueryStats()
+            torch.cuda.synchronize()
+            ops.KERNEL_LAUNCHES.clear()
+            t0 = time.perf_counter()
+            ans = tdr_query.rpq_batch(idx, qs, backend=backend,
+                                      exact_mode=mode,
+                                      exact_chunk=EXACT_CHUNK, stats=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            name = f"{backend or 'matmul'}/{mode}"
+            runs[name] = (ans, st, dict(ops.KERNEL_LAUNCHES), wall)
+            print(f"rpq_batch[{name}]: {wall:.3f} s, "
+                  f"{len(qs) / wall:.1f} queries/s; {int(ans.sum())} TRUE; "
+                  f"phase-2 jobs {st.exact_jobs} (product jobs after the "
+                  f"cascade plus lowered), rounds {st.exact_rounds}; "
+                  f"launches {runs[name][2]}")
+    ans0 = runs["matmul/auto"][0]
+    if ans0.shape != (len(qs),) or ans0.dtype != bool:
+        return f"rpq answers have shape {ans0.shape} {ans0.dtype}"
+    for name, (ans, _, launched, _) in runs.items():
+        if not np.array_equal(ans, ans0):
+            return f"rpq answers of {name} differ from matmul/auto"
+        if name.startswith("matmul") and launched.get("bitset_matmul", 0) \
+                <= 0:
+            return f"bitset_matmul was not launched by rpq_batch[{name}]"
+    prod = [i for i, k in enumerate(route) if k == "product"]
+    pick = prod[:16] + [i for i, k in enumerate(route)
+                        if k != "product"][::6][:N_RPQ_ORACLE - 16]
+    t0 = time.perf_counter()
+    for i in pick:
+        u, v, r = qs[i]
+        if dfs_baseline.answer_rpq(g, u, v, r) != bool(ans0[i]):
+            return f"rpq query {i} ({rpq.unparse(r)}) differs from the oracle"
+    print(f"rpq oracle: {len(pick)} answers ({len(prod[:16])} from the "
+          f"product route) equal the product-BFS oracle "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the product route alone: its rounds, and one NFA-state frontier
+    step = ops.frontier_step
+    seen = {"n": 0}
+
+    def spy(a, x):   # observes one call's operands; computes nothing
+        seen["n"] += 1
+        if seen["n"] <= SPY_CALL // 2 and bool((a != 0).any()):
+            seen["a"], seen["x"] = a, x     # a class that has edges
+        return step(a, x)
+
+    st = tdr_query.QueryStats()
+    torch.cuda.synchronize()
+    ops.frontier_step = spy
+    ops.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    tdr_query.rpq_batch(idx, [qs[i] for i in prod], exact_mode="full",
+                        exact_chunk=EXACT_CHUNK, stats=st)
+    torch.cuda.synchronize()
+    ops.frontier_step = step
+    print(f"rpq product route alone (full): {len(prod)} queries, "
+          f"{st.exact_jobs} after the cascade, {len(st._round_parts)} "
+          f"chunks, rounds {st._round_parts}, "
+          f"{time.perf_counter() - t0:.3f} s, launches "
+          f"{dict(ops.KERNEL_LAUNCHES)}")
+    wall, busy, top, _ = profile(torch, lambda: tdr_query.rpq_batch(
+        idx, qs, exact_chunk=EXACT_CHUNK))
+    print(f"profile rpq_batch: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * (1 - busy / wall):.1f}% idle); top device time: "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+    if "a" not in seen:
+        return "no NFA-state frontier reached bitset_matmul"
+    a, x = seen["a"], seen["x"]
+    m, kw = a.shape
+    x = ref.pad_k(x, kw * 32).contiguous()
+    a_bits = int(bitset.popcount(a).sum())
+    w = x.shape[1]
+    a_unp = bitset.unpack_bits(a, kw * 32).to(torch.bfloat16)
+    x_unp = bitset.unpack_bits(x, w * 32).to(torch.bfloat16)
+    print(f"bitset_matmul[rpq]: class matrix {tuple(a.shape)} with {a_bits} "
+          f"set bits, NFA-state frontier {tuple(x.shape)} with "
+          f"{int((x != 0).sum())} non-zero words (the last class with "
+          f"edges in the first {SPY_CALL // 2} of {seen['n']} calls of the "
+          f"product run)")
+    good = record(
+        "bitset_matmul[rpq,W=32]",
+        "src/repro_torch/kernels/csrc/bitset_matmul.cu",
+        "src/repro/kernels/bitset_matmul.py:45", ops.frontier_step(a, x),
+        ref.bitset_matmul_ref(a, x), lambda: ops.frontier_step(a, x),
+        lambda: ref.bitset_matmul_ref(a, x), (m * kw + x.numel() + m * w) * 4,
+        m * kw + 2 * a_bits * w, lambda: torch.matmul(a_unp, x_unp),
+        n_launches=runs["matmul/auto"][2].get("bitset_matmul", 0))
+    del a_unp, x_unp
+    return None if good else "bitset_matmul disagrees on an RPQ frontier"
+
+
+def serve_traffic(rpq, serve, g, seed: int, mix: dict):
+    """Closed-loop request mix: ``mix[kind]`` (u, v, pattern or regex,
+    kind) tuples per kind, the count requests first and the rest
+    shuffled.  ``run_clients`` deals them round-robin, so every count
+    request is among its client's first: after phase 7's batch (a) the
+    graph has 131,317 edges, past the 131,072 at which ``count_routes``
+    refuses the default cap (the reference's rule, ``E'·cap < 2^32``)."""
+    from repro_torch import pattern
+    kind_pool = serve.mixed_pool(g, 4 * max(mix.values()), seed + 1)
+    single = [q for q in kind_pool if len(pattern.to_dnf(q[2])) == 1]
+    n_w, n_c = mix.get("witness", 0), mix.get("count", 0)
+    rq = make_rpq_queries(rpq, g.n_vertices, g.n_labels, seed + 2) + \
+        make_rpq_queries(rpq, g.n_vertices, g.n_labels, seed + 3)
+    rest = [q + ("bool",) for q in serve.mixed_pool(g, mix["bool"], seed)]
+    rest += [q + ("dist",) for q in kind_pool[:mix["dist"]]]
+    rest += [q + ("witness",) for q in single[:n_w]]
+    rest += [q + ("rpq",) for q in rq[:mix["rpq"]]]
+    order = np.random.default_rng(seed + 4).permutation(len(rest))
+    return [q + ("count",) for q in single[n_w:n_w + n_c]] + \
+        [rest[i] for i in order]
+
+
+def run_clients(srv, reqs, on_half=None):
+    """``N_CLIENTS`` closed-loop threads submit ``reqs`` (dealt
+    round-robin) with ``with_lsn``; ``on_half`` runs once half of them are
+    answered.  Returns the wall time and per request ``(answer, lsn,
+    seconds)``; a request that raised holds its exception and lsn None."""
+    import threading
+    out = [None] * len(reqs)
+    done = [0]
+    lock, half = threading.Lock(), threading.Event()
+
+    def client(ids):
+        for i in ids:
+            u, v, x, kind = reqs[i]
+            kw = {"k": SERVE_K} if kind == "dist" else \
+                {"hops": SERVE_HOPS} if kind == "count" else {}
+            t = time.perf_counter()
+            try:
+                ans, lsn = srv.submit(u, v, x, kind=kind, with_lsn=True,
+                                      **kw).result(timeout=600)
+            except Exception as exc:   # noqa: BLE001 — checked by the caller
+                ans, lsn = exc, None
+            out[i] = (ans, lsn, time.perf_counter() - t)
+            with lock:
+                done[0] += 1
+                if done[0] * 2 >= len(reqs):
+                    half.set()
+
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(reqs), N_CLIENTS),),
+                                daemon=True) for j in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if on_half is not None:
+        half.wait(600)
+        on_half()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise RuntimeError("a serving client did not finish")
+    return time.perf_counter() - t0, out
+
+
+def serve_phase(torch, g, idx) -> str | None:
+    """Phase 9: a ``QueryServer`` under closed-loop mixed traffic with an
+    update midway; answers against direct segment calls at their LSN,
+    nothing materialised after warmup, recovery onto the card.  Returns a
+    failure message, or None."""
+    import shutil
+    import tempfile
+    from repro_torch import dfs_baseline, engine, rpq, tdr_query
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serve_", dir=root)
+    srv = serve.QueryServer(idx, backend="matmul")
+    try:
+        srv.persist_to(tmp)
+        srv.start()
+        t0 = time.perf_counter()
+        n_warm = srv.warmup(serve.mixed_pool(g, 256, seed=4))
+        print(f"serve: warmup {time.perf_counter() - t0:.3f} s, "
+              f"jit_cache_entries +{n_warm}; pins m={srv._pin_m}, "
+              f"{len(srv._special or ())} special labels")
+        n0 = engine.jit_cache_entries()
+        reqs = serve_traffic(rpq, serve, g, seed=5, mix=dict(SERVE_MIX))
+        add, rem = update_batches(np.random.default_rng(2), g)[0][1](g)
+        upd = {}
+
+        def update():
+            upd["stats"] = srv.submit_update(add, rem, timeout=600)
+            upd["index"] = srv.index
+
+        torch.cuda.synchronize()
+        ops.KERNEL_LAUNCHES.clear()
+        wall, out = run_clients(srv, reqs, on_half=update)
+        torch.cuda.synchronize()
+        launched = dict(ops.KERNEL_LAUNCHES)
+        moved = engine.jit_cache_entries() - n0
+        raised = [(reqs[i][3], o[0]) for i, o in enumerate(out)
+                  if o[1] is None]
+        if raised:
+            return (f"{len(raised)} requests raised, the first a "
+                    f"{raised[0][0]}: {raised[0][1]!r}")
+        st = srv.stats
+        lat = collections.defaultdict(list)
+        for (_, _, _, kind), (_, _, sec) in zip(reqs, out):
+            lat[kind].append(sec * 1e3)
+        print(f"serve: {len(reqs)} requests from {N_CLIENTS} clients in "
+              f"{wall:.3f} s = {len(reqs) / wall:.1f} requests/s; mean "
+              f"batch {st.mean_batch:.2f} over {st.batches} batches; cache "
+              f"hits {st.cache_hits}, dedup hits {st.dedup_hits}; unpinned "
+              f"{st.unpinned_batches}, overflow {st.overflow_batches}; "
+              f"jit_cache_entries moved {moved} after warmup")
+        print("serve latency ms (p50 / p99): " + "; ".join(
+            f"{k} {np.percentile(v, 50):.2f} / {np.percentile(v, 99):.2f}"
+            for k, v in lat.items()))
+        us = upd["stats"]
+        print(f"serve: submit_update midway: +{us.n_added} edges, mode "
+              f"{us.mode}, tail {us.tail or '-'}, {us.wall_s:.3f} s; "
+              f"traffic launches {launched}")
+        for kname in ("bitset_matmul", "way_filter", "block_sparse_matmul",
+                      "lane_matmul"):
+            if launched.get(kname, 0) <= 0:
+                return f"{kname} was not launched on the serving path"
+        if moved or st.unpinned_batches or st.overflow_batches:
+            return (f"serving after warmup materialised {moved}, unpinned "
+                    f"{st.unpinned_batches}, overflow {st.overflow_batches}")
+
+        # every answer against a direct segment call at its LSN
+        at = {0: idx, 1: upd["index"]}
+        t0 = time.perf_counter()
+        for lsn, ix in at.items():
+            sel = [i for i, o in enumerate(out) if o[1] == lsn]
+            by = collections.defaultdict(list)
+            for i in sel:
+                by[reqs[i][3]].append(i)
+            want = {}
+            for kind, fn in (
+                    ("bool", lambda q: tdr_query.answer_batch(
+                        ix, q, backend="segment")),
+                    ("dist", lambda q: tdr_query.dist_batch(
+                        ix, q, k=SERVE_K, backend="segment")),
+                    ("rpq", lambda q: tdr_query.rpq_batch(
+                        ix, q, backend="segment"))):
+                if by[kind]:
+                    got = fn([reqs[i][:3] for i in by[kind]])
+                    want.update(zip(by[kind], got.tolist()))
+            for i in by["count"]:
+                want[i] = tdr_query.count_routes(
+                    ix, *reqs[i][:3], hops=SERVE_HOPS, backend="segment")
+            if by["witness"]:
+                dw = tdr_query.dist_batch(
+                    ix, [reqs[i][:3] for i in by["witness"]],
+                    backend="segment")
+                for i, d in zip(by["witness"], dw.tolist()):
+                    path = out[i][0]
+                    ok = (path is None) if d < 0 else (
+                        len(path) == d and dfs_baseline.verify_witness(
+                            ix.graph, *reqs[i][:3], path))
+                    if not ok:
+                        return f"witness request {i} at lsn {lsn} is wrong"
+            for i, w in want.items():
+                if out[i][0] != w:
+                    return (f"{reqs[i][3]} request {i} at lsn {lsn}: "
+                            f"served {out[i][0]}, direct {w}")
+        n_at = collections.Counter(o[1] for o in out)
+        print(f"serve: every answer equals a direct segment call on the "
+              f"index of its LSN ({dict(n_at)} requests per LSN; "
+              f"{time.perf_counter() - t0:.1f} s)")
+        if sorted(n_at) != [0, 1]:
+            return f"requests were served at LSNs {dict(n_at)}, not 0 and 1"
+
+        # the device's idle share over a profiled burst of fresh requests
+        burst = serve_traffic(rpq, serve, g, seed=12, mix={
+            k: c // 4 for k, c in SERVE_MIX if k != "count"})
+        wall_p, busy, top, _ = profile(torch, lambda: run_clients(srv, burst))
+        print(f"profile serve burst ({len(burst)} requests): wall "
+              f"{wall_p:.3f} s, device busy {busy:.3f} s "
+              f"({100 * (1 - busy / wall_p):.1f}% idle); top device time: "
+              + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+        live = srv.index
+        srv.stop()
+        srv.close_persistence()
+        t0 = time.perf_counter()
+        rec = serve.QueryServer.recover(tmp, backend="matmul")
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        rec.close_persistence()
+        bad = [p for p in ALL_PLANES if not torch.equal(
+            getattr(rec.index, p), getattr(live, p))]
+        print(f"serve: recover onto {rec.index.device} at lsn "
+              f"{rec.stats.applied_lsn} in {rec_s:.3f} s; planes differing "
+              f"from the live index: {bad}")
+        if bad or rec.index.device.type != "cuda" or \
+                rec.stats.applied_lsn != 1:
+            return f"recovered server differs from the live one: {bad}"
+    finally:
+        srv.stop(drain=False)
+        srv.close_persistence()
+        shutil.rmtree(tmp, ignore_errors=True)
     return None
 
 
@@ -928,6 +1303,16 @@ def main() -> int:
     # ---- 7. live index: updates, answers on the new graph, durability ---
     msg = live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries,
                            b3_row, kw)
+    if msg:
+        return fail(msg)
+
+    # ---- 8. regular path queries -------------------------------------
+    msg = rpq_phase(torch, g, idx, record)
+    if msg:
+        return fail(msg)
+
+    # ---- 9. the micro-batching server ---------------------------------
+    msg = serve_phase(torch, g, idx)
     if msg:
         return fail(msg)
 

@@ -8,7 +8,8 @@ kept in step with the JAX package's oracle; ``chip_smoke.py`` holds the
 port's answers against it.  ``shortest_pcr`` (BFS over the same product
 graph), ``count_routes`` (the layered walk-count DP) and
 ``verify_witness`` are the oracles of the distance, route-count and
-witness query kinds.
+witness query kinds; ``answer_rpq`` (BFS over the graph times a Glushkov
+NFA) is the oracle of regular path queries.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 import numpy as np
 
 from . import pattern as pat
+from . import rpq as rpq_mod
 from .graph import Graph
 
 
@@ -203,3 +205,42 @@ def verify_witness(graph: Graph, u: int, v: int, p: pat.Pattern,
     if cur != v:
         return False
     return any(t.satisfied_by(seen_labels) for t in pat.to_dnf(p))
+
+
+def answer_rpq(graph: Graph, u: int, v: int, r,
+               stats: SearchStats | None = None) -> bool:
+    """Exact RPQ answer: BFS over the product of the graph with the
+    Glushkov NFA of ``r`` (states ``(vertex, nfa_state)``), the oracle
+    every RPQ executor is tested against.  A u→v path answers True iff
+    its label *sequence* is a word of ``L(r)``; ``u == v`` answers True
+    iff ε ∈ L(r) (``rpq.nullable``)."""
+    stats = stats or SearchStats()
+    nfa = rpq_mod.compile_nfa(r, graph.n_labels)
+    if u == v and nfa.nullable:
+        return True  # empty path, empty word
+    tab = nfa.tab
+    indptr, indices, labels = graph.indptr, graph.indices, graph.labels
+    # Glushkov has no ε-transitions: the seed is the start state alone
+    start = (int(u), 0)
+    seen = {start}
+    stack = [start]
+    while stack:
+        x, q = stack.pop()
+        stats.states_visited += 1
+        row = tab[:, q]
+        for i in range(indptr[x], indptr[x + 1]):
+            stats.edges_scanned += 1
+            nxt = int(row[int(labels[i])])
+            if not nxt:
+                continue
+            y = int(indices[i])
+            for p in range(nfa.n_states):
+                if not (nxt >> p) & 1:
+                    continue
+                if y == v and (nfa.accept >> p) & 1:
+                    return True
+                st = (y, p)
+                if st not in seen:
+                    seen.add(st)
+                    stack.append(st)
+    return False

@@ -32,6 +32,7 @@ reduction on ``segment``, always through the dense cores.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import os
@@ -44,12 +45,16 @@ from . import bitset
 from .bitset import resolve_device  # noqa: F401  (re-exported)
 from .compressed import BlockCompressed, compress_blocks, patch_blocks
 from .graph import Graph, csr_row_edges
-from .kernels import ops
+from .kernels import _build, ops
 from .semiring import BOOLEAN, Semiring
 
 ENV_BACKEND = "REPRO_ENGINE_BACKEND"
 BACKENDS = ("segment", "matmul")
 CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
+
+# label-class stacks packed by ``Engine.label_class_adjacency`` (its LRU's
+# misses), across every engine of this process
+LABEL_CLASS_PACKS: collections.Counter = collections.Counter()
 
 
 class DenseCapWarning(UserWarning):
@@ -200,7 +205,10 @@ class Engine:
         self.graph = graph
         self._adj: dict[bool, torch.Tensor] = {}
         self._bcomp: dict[bool, BlockCompressed] = {}
-        self._label_adj: dict[tuple, torch.Tensor] = {}
+        # an OrderedDict: move_to_end refreshes an entry in one step, so a
+        # reader on another thread never sees it missing
+        self._label_adj: collections.OrderedDict[tuple, torch.Tensor] = \
+            collections.OrderedDict()
         self._rev_graph: Graph | None = None
         self.edge_src = torch.from_numpy(graph.src.astype(np.int64)).to(
             self.device)
@@ -266,10 +274,11 @@ class Engine:
         labels = tuple(sorted(set(int(l) for l in special_labels)))
         key = (labels, reverse)
         if key in self._label_adj:
-            self._label_adj[key] = self._label_adj.pop(key)  # refresh LRU
+            self._label_adj.move_to_end(key)                 # refresh LRU
         else:
             while len(self._label_adj) >= self.LABEL_ADJ_CACHE:
-                self._label_adj.pop(next(iter(self._label_adj)))
+                self._label_adj.popitem(last=False)
+            LABEL_CLASS_PACKS["stacks"] += 1
             g = self.graph
             self._label_adj[key] = bitset.np_to_words(
                 pack_label_class_edges_np(g.src, g.indices, g.labels,
@@ -361,10 +370,11 @@ class Engine:
         Cached dense adjacencies are patched, not repacked: the rows whose
         edge set changed (sources for the forward matrix, destinations for
         the reverse one) are re-derived from the new CSR and written into
-        a new tensor on the device.  Cached block operands go through
-        ``compressed.patch_blocks``, live lists included.  Label-class
-        stacks are dropped; they rebuild on the next query batch.  This
-        engine and its operands are left as they were."""
+        a new tensor on the device.  Cached label-class stacks are patched
+        the same way, class by class, so a server's pinned stacks survive
+        an update without a repack.  Cached block operands go through
+        ``compressed.patch_blocks``, live lists included.  This engine and
+        its operands are left as they were."""
         _check_same_device(self.device, device)
         if graph.n_vertices != self.graph.n_vertices:
             raise ValueError("apply_delta requires a fixed vertex set")
@@ -377,16 +387,26 @@ class Engine:
             return np.unique(np.concatenate(
                 [added[:, col], removed[:, col]])).astype(np.int64)
 
-        def patched_row_bits(reverse: bool, rows: np.ndarray,
-                             kw: int) -> np.ndarray:
+        def patched_row_bits(reverse: bool, rows: np.ndarray, kw: int,
+                             labels: tuple | None = None) -> np.ndarray:
+            """New bits of ``rows`` [R, kw], or per label class
+            [C+1, R, kw] (the last class every other label)."""
             if reverse not in csrs:
                 csrs[reverse] = graph.reverse()
             g = csrs[reverse]
             counts = (g.indptr[rows + 1] - g.indptr[rows]).astype(np.int64)
             pos = np.repeat(np.arange(rows.shape[0]), counts)
             eidx = csr_row_edges(g.indptr, rows)
-            rowbits = np.zeros((rows.shape[0], kw), dtype=np.uint32)
-            bitset.set_bits_np(rowbits, (pos,), g.indices[eidx])
+            if labels is None:
+                rowbits = np.zeros((rows.shape[0], kw), dtype=np.uint32)
+                bitset.set_bits_np(rowbits, (pos,), g.indices[eidx])
+                return rowbits
+            cls = np.full(eidx.shape[0], len(labels), dtype=np.int64)
+            for i, l in enumerate(labels):
+                cls[g.labels[eidx] == l] = i
+            rowbits = np.zeros((len(labels) + 1, rows.shape[0], kw),
+                               dtype=np.uint32)
+            bitset.set_bits_np(rowbits, (cls, pos), g.indices[eidx])
             return rowbits
 
         for reverse, adj in self._adj.items():
@@ -398,6 +418,16 @@ class Engine:
             new._adj[reverse] = adj.index_put(
                 (torch.from_numpy(rows).to(self.device),),
                 bitset.np_to_words(rowbits, self.device))
+        # a snapshot: a server's scheduler may refresh this LRU while an
+        # update is built from the engine it serves on
+        for (labels, reverse), stack in list(self._label_adj.items()):
+            rows = touched_rows(reverse)
+            if rows.size:
+                stack = stack.clone()
+                stack[:, torch.from_numpy(rows).to(self.device)] = \
+                    bitset.np_to_words(patched_row_bits(
+                        reverse, rows, stack.shape[2], labels), self.device)
+            new._label_adj[(labels, reverse)] = stack
         for reverse, comp in self._bcomp.items():
             rows = touched_rows(reverse)
             if rows.size == 0:
@@ -468,6 +498,20 @@ def _check_same_device(have: torch.device, device) -> None:
     dev = resolve_device(device)
     if norm(dev) != norm(have):
         raise ValueError(f"operands live on {have}, asked to run on {dev}")
+
+
+def jit_cache_entries() -> int:
+    """What the port has materialised for a new shape or content: kernel
+    library builds and loads (``kernels/_build.library``) plus label-class
+    stacks packed on a miss of ``Engine.label_class_adjacency``'s LRU.
+
+    The counterpart of the JAX package's count of compiled variants.  The
+    serving layer reads its delta over a window: zero means steady traffic
+    built, loaded and packed nothing new (torch itself compiles nothing
+    per shape).  The class stacks make the count move on the CPU too, on
+    the matmul backend."""
+    return (sum(_build.LIBRARY_EVENTS.values())
+            + sum(LABEL_CLASS_PACKS.values()))
 
 
 def make_engine(graph: Graph, backend: str | None = None,

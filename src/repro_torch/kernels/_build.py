@@ -28,6 +28,8 @@ import torch
 
 # launches per kernel, counted where each wrapper launches its kernel
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
+# "build" per nvcc build and "load" per library load, in this process
+LIBRARY_EVENTS: collections.Counter = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitset_matmul.cu", "way_filter.cu", "block_sparse.cu",
@@ -126,7 +128,10 @@ def library() -> KernelLibrary:
         t0 = time.perf_counter()
         log = _compile(path)
         seconds = time.perf_counter() - t0
-    return KernelLibrary(ctypes.CDLL(str(path)), path, seconds, log)
+        LIBRARY_EVENTS["build"] += 1
+    lib = KernelLibrary(ctypes.CDLL(str(path)), path, seconds, log)
+    LIBRARY_EVENTS["load"] += 1
+    return lib
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,

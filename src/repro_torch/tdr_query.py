@@ -38,7 +38,10 @@ corridor-compacted subgraphs, at the bottom of this module: ``dist_batch``
 (min, +) fixpoint; on ``matmul`` one ``lane_matmul`` per label class per
 direction per round), ``witness`` (an actual shortest path) and
 ``count_routes`` (bounded, saturating walk counts), and ``answer_mixed``
-routes a batch of mixed kinds.
+routes a batch of mixed kinds.  Regular path queries (``rpq_batch``) run
+the same bidirectional expansion over NFA states instead of subset
+states; on ``matmul`` one ``bitset_matmul`` per label class per direction
+per round.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from . import bitset
 from . import engine as engine_mod
 from . import graph as graph_mod
 from . import pattern as pat
+from . import rpq as rpq_mod
 from . import dfs_baseline as dfs_mod
 from .kernels import ops
 from .semiring import COUNT_CAP, DIST16, narrow, widen
@@ -211,10 +215,22 @@ def _compile_pattern_rows(index: TDRIndex, p: pat.Pattern,
 
 
 def pattern_rows(index: TDRIndex, p: pat.Pattern, max_m: int = 4,
-                 stats: "QueryStats | None" = None) -> PatternRows:
+                 stats: "QueryStats | None" = None,
+                 kind: str = "bool") -> PatternRows:
     """Cached plan rows for one pattern (canonical-key LRU on the index);
-    ``stats`` counts the lookup and the miss, if any."""
-    key = (pat.canonical_key(p), max_m)
+    ``stats`` counts the lookup and the miss, if any.  ``kind`` partitions
+    the LRU per query kind, as the serving layer keys its result cache:
+    the rows are the same, but one kind's traffic never refreshes or
+    evicts another's entries."""
+    return _cached_rows(
+        index, (pat.canonical_key(p), max_m, kind), stats,
+        lambda: _compile_pattern_rows(index, pat.canonicalize(p), max_m))
+
+
+def _cached_rows(index: TDRIndex, key: tuple, stats, compile_fn):
+    """The index's plan-row LRU: ``key``'s entry, or ``compile_fn()``'s
+    result stored under it (compiled outside the lock).  ``stats`` counts
+    the lookup and the miss, if any."""
     if stats is not None:
         stats.plan_lookups += 1
     cache = index._plan_cache
@@ -225,7 +241,7 @@ def pattern_rows(index: TDRIndex, p: pat.Pattern, max_m: int = 4,
             return rows
     if stats is not None:
         stats.plan_misses += 1
-    rows = _compile_pattern_rows(index, pat.canonicalize(p), max_m)
+    rows = compile_fn()
     with _plan_cache_lock:
         while len(cache) >= PLAN_CACHE_CAP:
             cache.pop(next(iter(cache)))
@@ -413,13 +429,14 @@ def _meet(f, b, sup_need):
     return done
 
 
-def _bidi_loop(f0, b0, push_f, push_b, cor_w, sup_need, max_rounds: int):
+def _bidi_loop(f0, b0, push_f, push_b, cor_w, meet, max_rounds: int):
     """Alternating bidirectional fixpoint.  One iteration = one forward +
-    one backward expansion; a query's columns freeze once it meets, and a
-    direction whose last push added nothing is at its fixpoint and skips
-    its push.  One host sync per iteration reads the three loop flags."""
+    one backward expansion; a query's columns freeze once it meets
+    (``meet(f, b)`` -> bool [Q]), and a direction whose last push added
+    nothing is at its fixpoint and skips its push.  One host sync per
+    iteration reads the three loop flags."""
     f, b = f0, b0
-    done = _meet(f, b, sup_need)
+    done = meet(f, b)
     cf, cb, all_done = True, True, bool(done.all())
     rounds = 0
     while (cf or cb) and not all_done and rounds < max_rounds:
@@ -428,18 +445,37 @@ def _bidi_loop(f0, b0, push_f, push_b, cor_w, sup_need, max_rounds: int):
         f = f | new_f
         new_b = push_b(b) & mask & ~b if cb else torch.zeros_like(b)
         b = b | new_b
-        done = done | _meet(f, b, sup_need)
+        done = done | meet(f, b)
         cf, cb, all_done = torch.stack(
             [(new_f != 0).any(), (new_b != 0).any(), done.all()]).tolist()
         rounds += 1
     return done, rounds
 
 
-def _seed(idx, v_p: int, q_n: int):
-    """[V', Q] frontier holding subset state ∅ at row idx[q] of column q."""
+def _seed(idx, v_p: int, q_n: int, val=1):
+    """[V', Q] frontier holding ``val`` (default: subset state ∅) at row
+    idx[q] of column q; ``val`` is a scalar or an int32 [Q]."""
     f0 = torch.zeros((v_p, q_n), dtype=torch.int32, device=idx.device)
-    f0[idx, torch.arange(q_n, device=idx.device)] = 1
+    f0[idx, torch.arange(q_n, device=idx.device)] = val
     return f0
+
+
+def _reduce_edges(val, scatter_idx, ids, v_p: int, chunk_words: int):
+    """OR the per-edge rows ``val`` [E', Q] into their ``scatter_idx``
+    vertex: over the padded incidence gather matrices ``ids`` (edge ids
+    grouped by vertex, the sentinel ``E'`` pointing at an appended zero
+    row; one level, or two on a virtual-row split of heavy tails), or,
+    when ``ids`` is None, by packed segment-ORs."""
+    if ids is None:
+        return bitset.segment_or_words(val, scatter_idx, num_segments=v_p,
+                                       chunk_words=chunk_words)
+    val = torch.cat([val, val.new_zeros((1, val.shape[1]))])
+    for level in ids:
+        out = val[level[:, 0]]
+        for j in range(1, level.shape[1]):
+            out = out | val[level[:, j]]
+        val = out
+    return val                                                   # [V', Q]
 
 
 def _bidi_segment_core(su, sv, req_labels, forb_raw_w, full_mask, cor_w,
@@ -456,28 +492,15 @@ def _bidi_segment_core(su, sv, req_labels, forb_raw_w, full_mask, cor_w,
                                        n_states, max_m)
     sup_need = _sup_need(full_mask, n_states)
 
-    def reduce_cols(val, ids):
-        out = val[ids[:, 0]]
-        for j in range(1, ids.shape[1]):
-            out = out | val[ids[:, j]]
-        return out
-
     def push(frontier, gather_idx, ids, scatter_idx):
         val = _transition(frontier[gather_idx] & allow, has, sh)  # [E', Q]
-        if ids is None:
-            return bitset.segment_or_words(val, scatter_idx,
-                                           num_segments=v_p,
-                                           chunk_words=chunk_words)
-        val = torch.cat([val, val.new_zeros((1, q_n))])
-        for level in ids:   # 1 level, or virtual-row split on heavy tails
-            val = reduce_cols(val, level)
-        return val                                               # [V', Q]
+        return _reduce_edges(val, scatter_idx, ids, v_p, chunk_words)
 
     return _bidi_loop(
         _seed(su, v_p, q_n), _seed(sv, v_p, q_n),
         lambda f: push(f, sub_src, ids_in, sub_dst),
         lambda b: push(b, sub_dst, ids_out, sub_src),
-        cor_w, sup_need, max_rounds)
+        cor_w, lambda f, b: _meet(f, b, sup_need), max_rounds)
 
 
 def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
@@ -504,7 +527,7 @@ def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
     return _bidi_loop(
         _seed(su, v_p, q_n), _seed(sv, v_p, q_n),
         lambda f: push(f, adj_rev), lambda b: push(b, adj_fwd),
-        cor_w, sup_need, max_rounds)
+        cor_w, lambda f, b: _meet(f, b, sup_need), max_rounds)
 
 
 # ---------------------------------------------------------------- executor
@@ -531,6 +554,31 @@ class ChunkResult:
 
 def _to_long(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+
+
+def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
+                  v_p: int, edges=None):
+    """A matmul chunk's label-class operands ``(adj_rev, adj_fwd,
+    class_label)``: one class per ``special`` label plus the neutral one
+    (label -1), as ``[C+1, V', Kw]`` stacks from the engine's LRU for the
+    full graph (``edges`` None), else packed on the host from a compacted
+    chunk's ``(src, dst, lab)`` (padding rows repeat a real edge, which
+    sets the same bit twice).  None when the stacks do not fit the dense
+    cap on the CPU (the caller runs its segment core); on a card
+    ``Engine.dense_fits`` raises instead."""
+    n_mats = 2 * (len(special) + 1)
+    if not eng.dense_fits(
+            n_mats * v_p * bitset.n_words(v_p) * 4,
+            f"this chunk's {n_mats} label-class adjacency matrices"):
+        return None
+    if edges is None:
+        adj = [eng.label_class_adjacency(special, reverse=rev)
+               for rev in (True, False)]
+    else:
+        adj = [bitset.np_to_words(engine_mod.pack_label_class_edges_np(
+            *edges, v_p, special, reverse=rev), eng.device)
+            for rev in (True, False)]
+    return (*adj, _to_long(np.asarray(special + (-1,)), eng.device))
 
 
 class ExactExecutor:
@@ -563,11 +611,16 @@ class ExactExecutor:
         spec.update(np.flatnonzero(bits).tolist())
         return tuple(sorted(spec))
 
-    def eff_states(self, plan: QueryPlan,
-                   jobs: np.ndarray) -> tuple[int, int]:
+    def eff_states(self, plan: QueryPlan, jobs: np.ndarray,
+                   pin_m: int | None = None) -> tuple[int, int]:
         """(m_eff, n_states) for the pending set: the widest require-set
-        actually present, not the plan-level ``max_m`` cap."""
+        actually present, not the plan-level ``max_m`` cap.  ``pin_m``
+        (serving) raises it to a fixed floor, capped at ``max_m``, so
+        steady traffic keeps one state width whatever a batch holds; a
+        wider state set only carries more empty states."""
         m_eff = int((plan.req_labels[jobs] >= 0).sum(axis=1).max(initial=0))
+        if pin_m is not None:
+            m_eff = min(max(m_eff, pin_m), plan.max_m)
         return m_eff, 1 << m_eff
 
     # ------------------------------------------------------------ planning
@@ -611,7 +664,7 @@ class ExactExecutor:
     # ------------------------------------------------------------ dispatch
     def run_chunk(self, plan: QueryPlan, pd: PlanDevice, jobs: np.ndarray,
                   member: np.ndarray | None, special: tuple[int, ...],
-                  mode: str) -> ChunkResult:
+                  mode: str, pin_m: int | None = None) -> ChunkResult:
         """Expand one padded chunk of pending jobs.  ``member is None`` ->
         full-graph bidirectional expansion (corridor built on the device);
         else corridor compaction over the member rows."""
@@ -620,7 +673,7 @@ class ExactExecutor:
         g = idx.graph
         q_n = len(jobs)
         v_n = g.n_vertices
-        m_eff, n_states = self.eff_states(plan, jobs)
+        m_eff, n_states = self.eff_states(plan, jobs, pin_m)
         if n_states > 32:
             raise ValueError(
                 f"max_m={m_eff} needs {n_states} subset states; the packed "
@@ -658,22 +711,14 @@ class ExactExecutor:
                                    idx.vtx_packed)
         max_rounds = v_p * n_states + 1
 
-        n_mats = 2 * (len(special) + 1)
-        if eng.backend == "matmul" and eng.dense_fits(
-                n_mats * v_p * bitset.n_words(v_p) * 4,
-                f"this chunk's {n_mats} label-class adjacency matrices"):
-            class_label = _to_long(np.asarray(special + (-1,)), dev)
-            if compacted:
-                adj_rev, adj_fwd = (
-                    bitset.np_to_words(engine_mod.pack_label_class_edges_np(
-                        s, d, l, v_p, special, reverse=rev), dev)
-                    for rev in (True, False))
-            else:
-                adj_rev = eng.label_class_adjacency(special, reverse=True)
-                adj_fwd = eng.label_class_adjacency(special, reverse=False)
+        stacks = None
+        if eng.backend == "matmul":
+            stacks = _class_stacks(eng, special, v_p,
+                                   (s, d, l) if compacted else None)
+        if stacks is not None:
             reached, rounds = _bidi_matmul_core(
-                su, sv, adj_rev, adj_fwd, class_label, req_labels,
-                forb_raw_w, full_mask, cor_w, n_states, m_eff, max_rounds)
+                su, sv, *stacks, req_labels, forb_raw_w, full_mask, cor_w,
+                n_states, m_eff, max_rounds)
             return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
                                compacted)
 
@@ -722,6 +767,14 @@ def _executor(index: TDRIndex, eng: "engine_mod.Engine") -> ExactExecutor:
 
 
 # ----------------------------------------------------------------- driver
+def _pinned(special: tuple[int, ...],
+            special_labels: Sequence[int] | None) -> tuple[int, ...]:
+    """The label-class set ``special`` widened by a serving pin."""
+    if special_labels is None:
+        return special
+    return tuple(sorted(set(int(l) for l in special_labels) | set(special)))
+
+
 def _check_device(index: TDRIndex, device) -> None:
     """Raise unless ``device`` (default: the card) is where the index is."""
     engine_mod._check_same_device(index.device, device)
@@ -758,6 +811,9 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                 backend: str | None = None,
                 exact_mode: str = "auto",
                 engine_config: "engine_mod.EngineConfig | None" = None,
+                special_labels: Sequence[int] | None = None,
+                pin_m: int | None = None,
+                pad_lo: int = 16,
                 _t0: float | None = None) -> np.ndarray:
     """Answer a compiled ``QueryPlan`` on the index's device.  Returns
     bool [plan.n_queries].
@@ -766,10 +822,17 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     ``exact_mode`` picks the phase-2 executor: "auto" (corridor-compacted
     whenever the padded corridor bucket is smaller than V), "compact"
     (force compaction) or "full" (full graph).  The job axis is padded
-    onto the ``{2^k, 3·2^(k-1)}`` grid from 16 up, as in the reference.
-    ``filters_only`` returns right after phase 1 with every UNKNOWN job
-    counted as reachable: an upper bound of the answers, which measures
-    the cascade's pruning."""
+    onto the ``{2^k, 3·2^(k-1)}`` grid from ``pad_lo`` up, as in the
+    reference.  ``filters_only`` returns right after phase 1 with every
+    UNKNOWN job counted as reachable: an upper bound of the answers, which
+    measures the cascade's pruning.
+
+    The serving pins fix what would otherwise follow a batch's content:
+    ``pin_m`` the subset-state width (``ExactExecutor.eff_states``) and
+    ``special_labels`` the label-class set, unioned with the labels the
+    batch needs, so the matmul backend's class stacks come from the
+    engine's LRU.  A pin can widen a set but never narrow it, so answers
+    never change."""
     if plan.max_m > 5:
         raise ValueError(
             f"max_m={plan.max_m}: the packed executor holds subset states "
@@ -793,7 +856,7 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     if plan.n_jobs == 0:
         return answers
 
-    plan_p = plan.pad_to(graph_mod.pad_bucket(plan.n_jobs, lo=16))
+    plan_p = plan.pad_to(graph_mod.pad_bucket(plan.n_jobs, lo=pad_lo))
     pd_u, pd_v = _to_long(plan_p.u, dev), _to_long(plan_p.v, dev)
     sat_out_d, sat_in_d = index.summary_flags_dev()
     verdict = _filter_cascade(
@@ -824,7 +887,7 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     t1 = time.perf_counter()
     ex = _executor(index, eng)
     v_n = index.graph.n_vertices
-    special = ex.special_labels(plan_p, pending)
+    special = _pinned(ex.special_labels(plan_p, pending), special_labels)
     pd = PlanDevice(pd_u, pd_v, _to_long(plan_p.req_labels, dev),
                     bitset.np_to_words(plan_p.forb_raw_w, dev),
                     torch.from_numpy(plan_p.full_mask).to(dev))
@@ -880,7 +943,8 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                 rows = np.concatenate(
                     [rows, np.repeat(rows[:1], exact_chunk - real_n,
                                      axis=0)])
-        res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode)
+        res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode,
+                           pin_m)
         reached = np.asarray(res.reached.cpu() if torch.is_tensor(
             res.reached) else res.reached)[:real_n]
         np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]], True)
@@ -1151,6 +1215,12 @@ class _KindChunk(NamedTuple):
     n_sub: int                  # |V'| before padding
 
 
+def _chunk_edges(ch: _KindChunk):
+    """A compacted chunk's edge lists for ``_class_stacks``; None for a
+    full-graph chunk, whose stacks come from the engine's LRU."""
+    return None if ch.sub_ids is None else (ch.src, ch.dst, ch.lab)
+
+
 def _kind_chunk(index: TDRIndex, ex: ExactExecutor, plan: QueryPlan,
                 pd: PlanDevice, jobs: np.ndarray,
                 exact_mode: str) -> _KindChunk:
@@ -1200,7 +1270,8 @@ def _kind_chunk(index: TDRIndex, ex: ExactExecutor, plan: QueryPlan,
 
 
 def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
-                engine_config, stats, device, what: str, exact_mode: str):
+                engine_config, stats, device, what: str, exact_mode: str,
+                pin_m: int | None):
     """Shared prologue of the lane executors: device check, plan, engine,
     executor, state width and the plan's device arrays."""
     if exact_mode not in EXACT_MODES:
@@ -1210,7 +1281,7 @@ def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
     plan = compile_queries(index, queries, max_m=max_m, stats=stats)
     eng = index.engine(backend, engine_config)
     ex = _executor(index, eng)
-    m_eff, n_states = ex.eff_states(plan, np.arange(plan.n_jobs))
+    m_eff, n_states = ex.eff_states(plan, np.arange(plan.n_jobs), pin_m)
     if n_states > 32:
         raise ValueError(
             f"max_m={m_eff} needs {n_states} subset states; the lane "
@@ -1229,6 +1300,8 @@ def dist_batch(index: TDRIndex,
                exact_chunk: int = 32, backend: str | None = None,
                exact_mode: str = "auto",
                engine_config: "engine_mod.EngineConfig | None" = None,
+               special_labels: Sequence[int] | None = None,
+               pin_m: int | None = None,
                stats: QueryStats | None = None,
                device="cuda") -> np.ndarray:
     """Shortest pattern-constrained hop distances.  Returns int64
@@ -1239,13 +1312,15 @@ def dist_batch(index: TDRIndex,
     backend each chunk runs the per-label-class ``lane_matmul`` core; its
     class stack is held to the engine's dense cap (over it a card raises
     ``DenseCapError``, the CPU warns and runs the segment core).
-    ``device`` defaults to the card and must be where ``index`` lives."""
+    ``special_labels`` and ``pin_m`` are the serving pins of
+    ``answer_plan``.  ``device`` defaults to the card and must be where
+    ``index`` lives."""
     t0 = time.perf_counter()
     stats = stats if stats is not None else QueryStats()
     plan, eng, ex, m_eff, n_states, pd = _kind_setup(
         index, queries, max_m=max_m, backend=backend,
         engine_config=engine_config, stats=stats, device=device,
-        what="dist", exact_mode=exact_mode)
+        what="dist", exact_mode=exact_mode, pin_m=pin_m)
     stats.n_queries += plan.n_queries
     stats.n_jobs += plan.n_jobs
     out = np.full(plan.n_queries, -1, np.int64)
@@ -1267,33 +1342,16 @@ def dist_batch(index: TDRIndex,
         frw = pd.forb_raw_w[jobs_t]
         fm = pd.full_mask[jobs_t]
         su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
-        best = None
+        stacks = None
         if eng.backend == "matmul":
-            special = ex.special_labels(plan, jobs)
-            n_mats = 2 * (len(special) + 1)
-            if eng.dense_fits(
-                    n_mats * ch.v_p * bitset.n_words(ch.v_p) * 4,
-                    f"this chunk's {n_mats} label-class adjacency "
-                    "matrices"):
-                class_label = _to_long(np.asarray(special + (-1,)), dev)
-                if ch.sub_ids is None:
-                    adj_rev = eng.label_class_adjacency(special,
-                                                        reverse=True)
-                    adj_fwd = eng.label_class_adjacency(special,
-                                                        reverse=False)
-                else:
-                    # padding rows duplicate edge 0: the same bit set
-                    # twice, idempotent in a packed bit-matrix
-                    adj_rev, adj_fwd = (
-                        bitset.np_to_words(
-                            engine_mod.pack_label_class_edges_np(
-                                ch.src, ch.dst, ch.lab, ch.v_p, special,
-                                reverse=rev), dev)
-                        for rev in (True, False))
-                best, rounds = _dist_bidi_matmul(
-                    su, sv, req, frw, fm, adj_rev, adj_fwd, class_label,
-                    it_cap, n_states, m_eff, max_rounds)
-        if best is None:
+            stacks = _class_stacks(
+                eng, _pinned(ex.special_labels(plan, jobs), special_labels),
+                ch.v_p, _chunk_edges(ch))
+        if stacks is not None:
+            best, rounds = _dist_bidi_matmul(
+                su, sv, req, frw, fm, *stacks, it_cap, n_states, m_eff,
+                max_rounds)
+        else:
             best, rounds = _dist_bidi(
                 su, sv, req, frw, fm, _to_long(ch.src, dev),
                 _to_long(ch.dst, dev), _to_long(ch.lab, dev),
@@ -1324,6 +1382,7 @@ def witness(index: TDRIndex, u: int, v: int, p: pat.Pattern,
             *, max_m: int = 4, backend: str | None = None,
             exact_mode: str = "auto",
             engine_config: "engine_mod.EngineConfig | None" = None,
+            pin_m: int | None = None,
             stats: QueryStats | None = None, device="cuda"
             ) -> list[tuple[int, int, int]] | None:
     """An actual shortest witness path for a PCR query.
@@ -1337,7 +1396,7 @@ def witness(index: TDRIndex, u: int, v: int, p: pat.Pattern,
     plan, eng, ex, m_eff, n_states, pd = _kind_setup(
         index, [(u, v, p)], max_m=max_m, backend=backend,
         engine_config=engine_config, stats=stats, device=device,
-        what="witness", exact_mode=exact_mode)
+        what="witness", exact_mode=exact_mode, pin_m=pin_m)
     if plan.n_jobs == 0:
         return None
     dev = index.device
@@ -1401,6 +1460,7 @@ def count_routes(index: TDRIndex, u: int, v: int, p: pat.Pattern,
                  *, hops: int, cap: int = COUNT_CAP, max_m: int = 4,
                  backend: str | None = None, exact_mode: str = "auto",
                  engine_config: "engine_mod.EngineConfig | None" = None,
+                 pin_m: int | None = None,
                  stats: QueryStats | None = None, device="cuda") -> int:
     """Number of pattern-satisfying u→v walks of length <= ``hops``,
     saturating at ``cap`` (``semiring.COUNT_CAP`` by default).
@@ -1417,7 +1477,7 @@ def count_routes(index: TDRIndex, u: int, v: int, p: pat.Pattern,
     plan, eng, ex, m_eff, n_states, pd = _kind_setup(
         index, [(u, v, p)], max_m=max_m, backend=backend,
         engine_config=engine_config, stats=stats, device=device,
-        what="count", exact_mode=exact_mode)
+        what="count", exact_mode=exact_mode, pin_m=pin_m)
     dev = index.device
     jobs = np.arange(plan.n_jobs)
     ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
@@ -1434,6 +1494,378 @@ def count_routes(index: TDRIndex, u: int, v: int, p: pat.Pattern,
     return int(total[0])
 
 
+# ------------------------------------------------- regular path queries
+# RPQs (``repro_torch.rpq``) constrain the *order* of a path's labels,
+# which the subset-state planes above cannot express.  The fragment that
+# DNF lowering absorbs exactly (unions of single-atom stars, the RPQ
+# spelling of LCR) rides ``answer_plan`` untouched; everything else runs
+# the corridor expansion generalized from subset states to Glushkov NFA
+# states: the ``[V', J]`` plane's word holds "NFA states reachable at
+# vertex x" (forward) / "states from which (v, accept) is reachable"
+# (backward), per-edge transitions come from the per-job ``[L, 32]`` NFA
+# tables, and a query meets once some vertex holds ``f & b != 0``.  The
+# filter cascade still prunes via the regex's label over-approximation,
+# but only its FALSE verdicts are sound (set logic is order-blind), so it
+# runs ``filters_only`` and its survivors go to the product executor.
+
+
+class RpqRows(NamedTuple):
+    """Per-regex compiled operands (endpoint-independent, cached like
+    ``PatternRows`` under the same LRU with kind "rpq" keys)."""
+    tab: np.ndarray             # uint32 [L, 32]  forward NFA table
+    rtab: np.ndarray            # uint32 [L, 32]  reverse NFA table
+    accept: int                 # uint32 accept-state bitmask
+    nullable: bool              # ε ∈ L(r): u == v answers True
+    nfa_states: int             # Glushkov state count (<= 32)
+    lowered: object             # exact pattern.Pattern lowering, or None
+    approx: object              # over-approximation pattern (prune only)
+    feasible: bool              # False: some required label can't exist
+    alpha: tuple                # in-graph alphabet (matmul label classes)
+
+    @property
+    def n_terms(self) -> int:
+        return 1                # one product-executor job per query
+
+
+def _compile_rpq_rows(index: TDRIndex, r, max_m: int) -> RpqRows:
+    n_labels = index.graph.n_labels
+    nfa = rpq_mod.compile_nfa(r, n_labels)
+    lowered = rpq_mod.lower_to_pattern(r, n_labels)
+    approx, feasible = rpq_mod.approx_pattern(r, n_labels,
+                                              max_require=max_m)
+    alpha = tuple(sorted(a for a in rpq_mod.alphabet(r) if a < n_labels))
+    return RpqRows(tab=nfa.tab, rtab=nfa.rtab, accept=int(nfa.accept),
+                   nullable=bool(nfa.nullable), nfa_states=nfa.n_states,
+                   lowered=lowered, approx=approx, feasible=feasible,
+                   alpha=alpha)
+
+
+def rpq_rows(index: TDRIndex, r, max_m: int = 4,
+             stats: "QueryStats | None" = None) -> RpqRows:
+    """Cached compiled operands for one RPQ (canonical key, the same
+    bounded LRU and lock as ``pattern_rows``)."""
+    return _cached_rows(
+        index, (rpq_mod.canonical_key(r), max_m, "rpq"), stats,
+        lambda: _compile_rpq_rows(index, rpq_mod.canonicalize(r), max_m))
+
+
+def _nfa_apply(masks, tab_e, q_u: int = 32):
+    """Union of ``tab_e[..., q]`` over the set bits q < ``q_u`` of
+    ``masks``: one NFA step applied to a packed state-subset plane, the
+    reference's ``q_u``-way unroll.  The executors run ``_nfa_apply_lut``;
+    this is what the tests hold it to."""
+    out = torch.zeros_like(masks)
+    for q in range(q_u):
+        hit = ((masks >> q) & 1) != 0
+        out = out | torch.where(hit, tab_e[..., q], 0)
+    return out
+
+
+def _nfa_luts(tabs, q_u: int):
+    """Byte lookup tables of NFA tables ``tabs`` int32 [R, J, 32] (R label
+    or class rows, J jobs) -> int32 [R, J, nb, 256], nb = ceil(q_u / 8):
+    entry [r, j, b, x] is the union of ``tabs[r, j, 8b + i]`` over the set
+    bits i of byte x, with the columns from ``q_u`` on dropped (the
+    chunk's NFAs never set those states)."""
+    nb = -(-q_u // 8)
+    t = tabs[..., :q_u]
+    if q_u < 8 * nb:
+        t = torch.cat([t, t.new_zeros(t.shape[:-1] + (8 * nb - q_u,))], -1)
+    t = t.reshape(t.shape[:-1] + (nb, 8, 1))
+    x = torch.arange(256, dtype=torch.int32, device=tabs.device)
+    lut = torch.zeros(t.shape[:-2] + (256,), dtype=torch.int32,
+                      device=tabs.device)
+    for i in range(8):
+        lut = lut | torch.where(((x >> i) & 1) != 0, t[..., i, :], 0)
+    return lut
+
+
+def _lut_bases(rows, q_n: int, nb: int):
+    """Per byte b, the flat offset of table (rows, job) in a
+    ``_nfa_luts`` result: ``((rows * J + j) * nb + b) * 256`` int64, with
+    ``rows`` [...] broadcast against the job axis."""
+    j = torch.arange(q_n, device=rows.device)
+    base = (rows[..., None] * q_n + j) * nb
+    return [(base + b) * 256 for b in range(nb)]
+
+
+def _nfa_apply_lut(masks, bases, lut_flat):
+    """``_nfa_apply`` by byte lookups.  δ is linear over union
+    (δ(S₁ ∪ S₂) = δ(S₁) ∪ δ(S₂)), so the image of a state set is the OR of
+    the images of its bytes: nb gathers from the flat table ``lut_flat``
+    at offsets ``bases[b]`` (``_lut_bases``) instead of 32 masked ORs.
+    Words are int32, so every right shift is masked."""
+    out = None
+    for b, base in enumerate(bases):
+        byte = (masks >> (8 * b)) & 255 if b else masks & 255
+        val = lut_flat[base + byte]
+        out = val if out is None else out | val
+    return out
+
+
+def _or_reduce0(x):
+    """OR over the leading axis of an int32 tensor, by halving."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] | x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
+def _rpq_sup_need(q_n: int, device="cpu"):
+    """``_meet``'s sup_need table specialized to the NFA meet: forward
+    state q completes with exactly backward state q -> int32 [32, Q]
+    (row 31 is the int32 with only bit 31 set)."""
+    bits = torch.tensor([_i32(1 << q) for q in range(32)],
+                        dtype=torch.int32, device=device)
+    return bits[:, None].expand(32, q_n)
+
+
+def _rpq_meet(f, b):
+    """done[q] = some vertex holds a forward state that is also a backward
+    state: ``_meet(f, b, _rpq_sup_need(Q))`` in one AND."""
+    return ((f & b) != 0).any(dim=0)
+
+
+def _rpq_bidi(su, sv, tabs, rtabs, accept, sub_src, sub_dst, sub_lab,
+              evalid, ids_in, ids_out, *, v_p: int, max_rounds: int,
+              chunk_words: int, q_u: int = 32):
+    """Segment-backend product-graph fixpoint over a (sub)graph's edge
+    lists.  One round = lane gather, per-edge NFA transition from the
+    job's table (a byte lookup by the edge's label), OR over the padded
+    in/out incidence (padding edges are never referenced there).  When
+    the incidence is None (degree skew beyond the gather cap) the
+    reduction is a packed segment-OR with padding edges masked by
+    ``evalid``: a padding edge would make up a letter, and unlike the
+    idempotent subset-state closure, a made-up edge changes the language.
+
+    ``tabs``/``rtabs`` int32 [J, L, 32]; every NFA of the chunk has at
+    most ``q_u`` states, so bits from ``q_u`` on are never set."""
+    q_n = su.shape[0]
+    nb = -(-q_u // 8)
+    luts = [_nfa_luts(t.transpose(0, 1), q_u).reshape(-1)
+            for t in (tabs, rtabs)]                     # [L, J, nb, 256]
+    bases = _lut_bases(sub_lab, q_n, nb)                # [E', J] each
+    ev = evalid[:, None]
+    cor_w = torch.full((v_p, q_n), -1, dtype=torch.int32, device=su.device)
+
+    def push(frontier, gat, lut, scat, ids):
+        val = _nfa_apply_lut(frontier[gat], bases, lut)          # [E', J]
+        if ids is None:
+            val = torch.where(ev, val, 0)
+        return _reduce_edges(val, scat, ids, v_p, chunk_words)
+
+    return _bidi_loop(
+        _seed(su, v_p, q_n), _seed(sv, v_p, q_n, accept),
+        lambda f: push(f, sub_src, luts[0], sub_dst, ids_in),
+        lambda b: push(b, sub_dst, luts[1], sub_src, ids_out),
+        cor_w, _rpq_meet, max_rounds)
+
+
+def _rpq_bidi_matmul(su, sv, tabs, rtabs, accept, adj_rev, adj_fwd,
+                     class_label, *, max_rounds: int, q_u: int = 32):
+    """Matmul-backend product-graph fixpoint: one ``bitset_matmul`` per
+    label class per direction per round, then one byte-lookup NFA step
+    over the stacked class results.  Every in-graph alphabet label of
+    the chunk has its own class; the merged neutral class carries a zero
+    transition table, sound because a label outside every job's alphabet
+    has an all-zero NFA table row anyway."""
+    q_n = su.shape[0]
+    v_p = adj_rev.shape[1]
+    n_c = class_label.shape[0]
+    nb = -(-q_u // 8)
+    live = (class_label >= 0)[:, None, None]
+    labx = class_label.clamp(min=0)
+    luts = [_nfa_luts(torch.where(live, t[:, labx, :].transpose(0, 1), 0),
+                      q_u).reshape(-1)
+            for t in (tabs, rtabs)]                     # [C+1, J, nb, 256]
+    bases = _lut_bases(torch.arange(n_c, device=su.device)[:, None], q_n,
+                       nb)                              # [C+1, 1, J] each
+    cor_w = torch.full((v_p, q_n), -1, dtype=torch.int32, device=su.device)
+
+    def push(frontier, adj_set, lut):
+        ys = torch.stack([engine_mod._matmul_rows(adj_set[c], frontier)
+                          for c in range(n_c)])          # [C+1, V', J]
+        return _or_reduce0(_nfa_apply_lut(ys, bases, lut))
+
+    return _bidi_loop(
+        _seed(su, v_p, q_n), _seed(sv, v_p, q_n, accept),
+        lambda f: push(f, adj_rev, luts[0]),
+        lambda b: push(b, adj_fwd, luts[1]),
+        cor_w, _rpq_meet, max_rounds)
+
+
+def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
+              max_m: int = 4, exact_chunk: int = 32,
+              backend: str | None = None, exact_mode: str = "auto",
+              engine_config: "engine_mod.EngineConfig | None" = None,
+              special_labels: Sequence[int] | None = None,
+              pin_m: int | None = None, pad_lo: int = 16,
+              q_unroll: int | None = None,
+              stats: QueryStats | None = None,
+              device="cuda") -> np.ndarray:
+    """Answer ``(u, v, rpq)`` regular path queries.  Returns bool [n].
+
+    ``q_unroll`` pins the NFA state width the transition steps read (a
+    power of two in 4..32).  ``None`` derives the tightest width from each
+    chunk's regexes; a serving layer pins 32 so the work per round never
+    depends on which regexes a batch holds.  Like the other pins it can
+    widen the width but never narrow it: a chunk whose NFAs need more
+    states runs at their width (the JAX package would drop the states
+    past the pin and answer wrongly).  ``special_labels``,
+    ``pin_m`` and ``pad_lo`` are ``answer_plan``'s serving pins.
+    ``device`` defaults to the card and must be where ``index`` lives.
+
+    Three routes, all equal to ``dfs_baseline.answer_rpq``:
+
+    * **lowered**: regexes in the index-expressible fragment
+      (``rpq.lower_to_pattern``) become plain PCR queries through
+      ``answer_plan``, bit for bit the equivalent pattern's answers;
+    * **infeasible**: a required label no graph edge carries leaves only
+      the empty path, so the answer is ``u == v and ε ∈ L(r)``;
+    * **product**: everything else.  The filter cascade on the regex's
+      over-approximation prunes (FALSE verdicts only), and the survivors
+      run the corridor-compacted automaton-product expansion on either
+      backend.  On ``matmul`` a chunk's class stack is held to the
+      engine's dense cap (over it a card raises ``DenseCapError``, the
+      CPU warns and runs the segment core).
+    """
+    if exact_mode not in EXACT_MODES:
+        raise ValueError(f"unknown exact_mode {exact_mode!r} for rpq; "
+                         "expected auto | compact | full")
+    if q_unroll is not None and q_unroll not in (4, 8, 16, 32):
+        raise ValueError(f"q_unroll must be a power of two in 4..32, "
+                         f"got {q_unroll!r}")
+    t0 = time.perf_counter()
+    _check_device(index, device)
+    eng = index.engine(backend, engine_config)
+    stats = stats if stats is not None else QueryStats()
+    out = np.zeros(len(queries), dtype=bool)
+    if not queries:
+        return out
+    rows = [rpq_rows(index, r, max_m, stats=stats) for (_, _, r) in queries]
+    plan_kw = dict(exact_chunk=exact_chunk, stats=stats, backend=backend,
+                   exact_mode=exact_mode, engine_config=engine_config,
+                   special_labels=special_labels, pin_m=pin_m,
+                   pad_lo=pad_lo)
+
+    low_ix = [i for i, rw in enumerate(rows) if rw.lowered is not None]
+    if low_ix:
+        lowq = [(queries[i][0], queries[i][1], rows[i].lowered)
+                for i in low_ix]
+        plan = compile_queries(index, lowq, max_m=max_m, stats=stats)
+        out[low_ix] = answer_plan(index, plan, **plan_kw)
+
+    hard_ix = []
+    for i, rw in enumerate(rows):
+        if rw.lowered is not None:
+            continue
+        if queries[i][0] == queries[i][1] and rw.nullable:
+            out[i] = True       # the empty path spells ε
+        elif rw.feasible:
+            hard_ix.append(i)   # infeasible: out[i] stays False
+    if not hard_ix:
+        return out
+
+    # phase 1: the cascade on the over-approximation.  A FALSE verdict
+    # refutes the RPQ (every matching word satisfies the approximation);
+    # filters_only returns the sound upper bound TRUE ∪ UNKNOWN
+    approxq = [(queries[i][0], queries[i][1], rows[i].approx)
+               for i in hard_ix]
+    aplan = compile_queries(index, approxq, max_m=max_m, stats=stats)
+    ub = answer_plan(index, aplan, filters_only=True, **plan_kw)
+    pos_of = {i: k for k, i in enumerate(hard_ix)}  # aplan job per query
+    hard_ix = [i for i, alive in zip(hard_ix, ub) if alive]
+    if not hard_ix:
+        return out
+
+    # phase 2: automaton-product expansion.  The approx plan has one term
+    # per query (job k is approxq position k), so it doubles as the
+    # endpoint plan and the corridor's source.
+    t1 = time.perf_counter()
+    dev = index.device
+    ex = _executor(index, eng)
+    jobs_all = np.asarray([pos_of[i] for i in hard_ix], dtype=np.int64)
+    pd = PlanDevice(_to_long(aplan.u, dev), _to_long(aplan.v, dev),
+                    _to_long(aplan.req_labels, dev),
+                    bitset.np_to_words(aplan.forb_raw_w, dev),
+                    torch.from_numpy(aplan.full_mask).to(dev))
+    n_labels = index.graph.n_labels
+    done_all = np.zeros(len(jobs_all), dtype=bool)
+    for c0 in range(0, len(jobs_all), exact_chunk):
+        jobs = jobs_all[c0:c0 + exact_chunk]
+        real_n = len(jobs)
+        if real_n < exact_chunk:    # pad the chunk with its first job
+            jobs = np.concatenate(
+                [jobs, np.full(exact_chunk - real_n, jobs[0])])
+        ch = _kind_chunk(index, ex, aplan, pd, jobs, exact_mode)
+        qrows = [rows[hard_ix[c0 + (j if j < real_n else 0)]]
+                 for j in range(len(jobs))]
+        q_u = 4
+        while q_u < max(rw.nfa_states for rw in qrows):
+            q_u *= 2
+        if q_unroll is not None:
+            q_u = max(q_u, q_unroll)
+        max_rounds = ch.v_p * q_u + 1    # product-graph diameter bound
+        tabs = bitset.np_to_words(np.stack([rw.tab for rw in qrows]), dev)
+        rtabs = bitset.np_to_words(np.stack([rw.rtab for rw in qrows]), dev)
+        accept = torch.tensor([_i32(rw.accept) for rw in qrows],
+                              dtype=torch.int32, device=dev)
+        su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
+        done = None
+        # the matmul route needs a real edge in the corridor: with none,
+        # the packed padding edge 0->0 would make up a letter
+        if eng.backend == "matmul" and ch.evalid.any():
+            special = set()
+            for rw in qrows:
+                special.update(rw.alpha)
+            if special_labels is not None:
+                special.update(int(l) for l in special_labels
+                               if 0 <= int(l) < n_labels)
+            stacks = _class_stacks(eng, tuple(sorted(special)), ch.v_p,
+                                   _chunk_edges(ch))
+            if stacks is not None:
+                done, rounds = _rpq_bidi_matmul(
+                    su, sv, tabs, rtabs, accept, *stacks,
+                    max_rounds=max_rounds, q_u=q_u)
+        if done is None:
+            # padded-incidence gathers over the real edges only; degree
+            # skew past the cap falls back to masked segment-ORs
+            e_real = int(ch.evalid.sum())
+            e_p = int(ch.src.shape[0])
+            ids_in = ids_out = None
+            if e_real:
+                plan_in = graph_mod.incidence_plan(
+                    ch.dst[:e_real], ch.v_p, e_p)
+                plan_out = graph_mod.incidence_plan(
+                    ch.src[:e_real], ch.v_p, e_p)
+                gb = sum(a.size for a in plan_in + plan_out) * \
+                    len(jobs) * 4
+                if gb <= ExactExecutor.GATHER_BYTES_CAP:
+                    ids_in = tuple(_to_long(a, dev) for a in plan_in)
+                    ids_out = tuple(_to_long(a, dev) for a in plan_out)
+            done, rounds = _rpq_bidi(
+                su, sv, tabs, rtabs, accept, _to_long(ch.src, dev),
+                _to_long(ch.dst, dev), _to_long(ch.lab, dev),
+                torch.from_numpy(ch.evalid).to(dev), ids_in, ids_out,
+                v_p=ch.v_p, max_rounds=max_rounds,
+                chunk_words=eng.config.chunk_words, q_u=q_u)
+        done_all[c0:c0 + real_n] = done.cpu().numpy()[:real_n]
+        stats._round_parts.append(rounds)
+        stats.corridor_active += ch.n_sub
+        stats.corridor_total += index.graph.n_vertices
+    out[hard_ix] = done_all
+    stats.exact_jobs += len(jobs_all)
+    stats.phase2_s += time.perf_counter() - t1
+    stats.phase1_s += t1 - t0
+    return out
+
+
+def answer_rpq(index: TDRIndex, u: int, v: int, r, **kw) -> bool:
+    """Single-query convenience wrapper over ``rpq_batch``."""
+    return bool(rpq_batch(index, [(u, v, r)], **kw)[0])
+
+
 def answer_mixed(index: TDRIndex, queries: Sequence[tuple], *,
                  hops: int = 8, k: int | None = None,
                  cap: int = COUNT_CAP, max_m: int = 4,
@@ -1443,21 +1875,16 @@ def answer_mixed(index: TDRIndex, queries: Sequence[tuple], *,
     """Answer a mixed-kind batch of ``(u, v, pattern[, kind])`` queries.
 
     Results align with the input order: bool for "bool", int distance (-1
-    unreachable) for "dist", an edge list / [] / None for "witness", and
-    an int for "count" (bounded by ``hops``, clamped at ``cap``).
-    Same-kind queries batch together; "witness"/"count" run per query.
-    Kind "rpq" is a valid kind, but its executor is not ported yet
-    (ROADMAP.md queue A, item 10): a batch holding one raises
-    ``NotImplementedError``."""
+    unreachable) for "dist", an edge list / [] / None for "witness", an
+    int for "count" (bounded by ``hops``, clamped at ``cap``), and bool for
+    "rpq" (whose third element is a ``repro_torch.rpq`` AST, not a
+    pattern).  Same-kind queries batch together; "witness"/"count" run
+    per query."""
     kinds = [(q[3] if len(q) > 3 else "bool") for q in queries]
     for kd in kinds:
         if kd not in QUERY_KINDS:
             raise ValueError(f"unknown query kind {kd!r}; expected one "
                              f"of {QUERY_KINDS}")
-    if "rpq" in kinds:
-        raise NotImplementedError(
-            "kind='rpq' needs rpq_batch, which the port does not have yet "
-            "(ROADMAP.md queue A, item 10)")
     common = dict(max_m=max_m, backend=backend, exact_mode=exact_mode,
                   engine_config=engine_config, stats=stats, device=device)
     results: list = [None] * len(queries)
@@ -1466,6 +1893,13 @@ def answer_mixed(index: TDRIndex, queries: Sequence[tuple], *,
         ans = answer_batch(index, [queries[i][:3] for i in bool_ix],
                            **common)
         for i, a in zip(bool_ix, ans):
+            results[i] = bool(a)
+    rpq_ix = [i for i, kd in enumerate(kinds) if kd == "rpq"]
+    if rpq_ix:
+        # the third element is a regex AST, which compile_queries would
+        # reject, so the kinds are split before batching
+        ans = rpq_batch(index, [queries[i][:3] for i in rpq_ix], **common)
+        for i, a in zip(rpq_ix, ans):
             results[i] = bool(a)
     dist_ix = [i for i, kd in enumerate(kinds) if kd == "dist"]
     if dist_ix:

@@ -636,3 +636,110 @@ def test_snapshot_roundtrip_on_card(cuda, tmp_path):
     rec = tdr_build.update_index(back, back.graph.apply_updates(a, r))
     for f in ALL_PLANES:
         assert torch.equal(getattr(rec, f), getattr(live, f)), f
+
+
+# ------------------------------------------------- regular path queries
+RPQ_TEXTS = ("(l0 | l3)*", "l0 (l1 | l2)* l3", "(l0 l1)+", "l2+ l5?",
+             "l1 . l4 . (l0 | l5)*", "(l0 | l1 | l2 | l3 | l4 | l5)+", "l6",
+             "l3* l0")
+
+
+def _rpq_queries(rng, n_vertices, n):
+    from repro_torch import rpq
+    out = []
+    for i in range(n):
+        u = int(rng.integers(n_vertices))
+        v = u if i % 7 == 0 else int(rng.integers(n_vertices))
+        out.append((u, v, rpq.parse(RPQ_TEXTS[i % len(RPQ_TEXTS)])))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["er", "pa"])
+@pytest.mark.parametrize("exact_mode", ["auto", "compact", "full"])
+def test_rpq_on_card_matches_cpu_segment(cuda, kind, exact_mode):
+    """rpq_batch on the card with the default backend (matmul: one
+    bitset_matmul per label class per direction per round) and with
+    segment equals a CPU segment run and the oracle, with equal rounds."""
+    g = G.random_graph(kind, 300, 3.0, 6, seed=5)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    idx = tdr_build.build_index(g, cfg)
+    idx_h = tdr_build.build_index(g, cfg, device="cpu")
+    qs = _rpq_queries(np.random.default_rng(6), 300, 64)
+    st_h = tdr_query.QueryStats()
+    want = tdr_query.rpq_batch(idx_h, qs, exact_mode=exact_mode, stats=st_h,
+                               device="cpu")
+    assert want.tolist() == [dfs_baseline.answer_rpq(g, u, v, r)
+                             for u, v, r in qs]
+    for backend in ("auto", "segment"):
+        ops.KERNEL_LAUNCHES.clear()
+        st = tdr_query.QueryStats()
+        got = tdr_query.rpq_batch(idx, qs, backend=backend,
+                                  exact_mode=exact_mode, stats=st)
+        assert got.tolist() == want.tolist(), backend
+        assert st.exact_rounds == st_h.exact_rounds, backend
+        if backend == "auto":
+            assert ops.KERNEL_LAUNCHES["bitset_matmul"] > 0
+
+
+@pytest.mark.gpu
+def test_rpq_dense_cap_on_the_card_raises(cuda):
+    """On the card a product chunk's class stack over the dense cap
+    raises DenseCapError: rpq_batch never falls back to segment."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=5)
+    ecfg = engine.EngineConfig(
+        max_dense_bytes=300 * bitset.n_words(300) * 4)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64),
+                                engine_config=ecfg)
+    qs = _rpq_queries(np.random.default_rng(6), 300, 64)
+    with pytest.raises(engine.DenseCapError):
+        tdr_query.rpq_batch(idx, qs, engine_config=ecfg, exact_mode="full")
+
+
+@pytest.mark.gpu
+def test_query_server_on_card_matches_direct(cuda, tmp_path):
+    """A small QueryServer on a card index (matmul) answers every kind
+    equal to direct CPU segment calls, materialises nothing after warmup,
+    swaps an update in on the card, and recovers onto the card."""
+    from repro_torch.launch import serve
+    g = G.random_graph("er", 300, 3.0, 6, seed=8)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    idx = tdr_build.build_index(g, cfg)
+    idx_h = tdr_build.build_index(g, cfg, device="cpu")
+    pool = serve.mixed_pool(g, 48, seed=9)
+    rqs = _rpq_queries(np.random.default_rng(10), 300, 16)
+    srv = serve.QueryServer(idx, backend="matmul", max_wait_ms=1.0)
+    try:
+        srv.persist_to(str(tmp_path / "p"))
+        srv.start()
+        srv.warmup(pool)
+        n0 = engine.jit_cache_entries()
+        futs = [(q + ("bool",), srv.submit(*q)) for q in pool]
+        futs += [(q + ("dist",), srv.submit(*q, kind="dist", k=8))
+                 for q in pool[:16]]
+        futs += [(q + ("rpq",), srv.submit(*q, kind="rpq")) for q in rqs]
+        for (u, v, p, kd), f in futs:
+            got = f.result(timeout=120)
+            if kd == "bool":
+                assert got == tdr_query.answer(idx_h, u, v, p, device="cpu")
+            elif kd == "dist":
+                assert got == int(tdr_query.dist_batch(
+                    idx_h, [(u, v, p)], k=8, device="cpu")[0])
+            else:
+                assert got == tdr_query.answer_rpq(idx_h, u, v, p,
+                                                   device="cpu")
+        assert engine.jit_cache_entries() == n0
+        assert srv.stats.unpinned_batches == srv.stats.overflow_batches == 0
+        srv.submit_update([(0, 5, 1), (7, 9, 2)], [], timeout=120)
+        assert srv.index.device.type == "cuda"
+        live = srv.index
+    finally:
+        srv.stop(drain=False)
+        srv.close_persistence()
+    rec = serve.QueryServer.recover(str(tmp_path / "p"), backend="matmul")
+    try:
+        assert rec.index.device.type == "cuda"
+        for f in ALL_PLANES:
+            assert torch.equal(getattr(rec.index, f), getattr(live, f)), f
+    finally:
+        rec.close_persistence()

@@ -17,7 +17,8 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.convert", "repro_torch.deltalog",
            "repro_torch.dfs_baseline",
            "repro_torch.engine", "repro_torch.graph", "repro_torch.lcr",
-           "repro_torch.pattern", "repro_torch.semiring",
+           "repro_torch.launch", "repro_torch.launch.serve",
+           "repro_torch.pattern", "repro_torch.rpq", "repro_torch.semiring",
            "repro_torch.snapshot",
            "repro_torch.tdr_build", "repro_torch.tdr_query",
            "repro_torch.kernels", "repro_torch.kernels._build",
@@ -133,3 +134,36 @@ def test_live_index_entry_points_refuse_the_cpu_by_default(entry, tmp_path):
         call()
     out = call(device="cpu")
     assert out.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["rpq_batch", "answer_rpq",
+                                   "answer_mixed", "recover", "serve_main"])
+def test_rpq_and_serving_entry_points_refuse_the_cpu_by_default(
+        entry, tmp_path, monkeypatch):
+    """Regular path queries, server recovery and the serving demo default
+    to the card too; the server itself runs where its index lives."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch import rpq
+    from repro_torch.launch import serve
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
+                                device="cpu")
+    r = rpq.parse("l0 . l1*")
+    srv = serve.QueryServer(idx)
+    srv.persist_to(str(tmp_path / "p"))
+    srv.close_persistence()
+    monkeypatch.setattr(sys, "argv", ["serve", "--vertices", "20",
+                                      "--requests", "4", "--clients", "2"])
+    call = {"rpq_batch": lambda: tdr_query.rpq_batch(idx, [(0, 1, r)]),
+            "answer_rpq": lambda: tdr_query.answer_rpq(idx, 0, 1, r),
+            "answer_mixed": lambda: tdr_query.answer_mixed(
+                idx, [(0, 1, r, "rpq")]),
+            "recover": lambda: serve.QueryServer.recover(
+                str(tmp_path / "p")),
+            "serve_main": serve.main}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    rec = serve.QueryServer.recover(str(tmp_path / "p"), device="cpu")
+    assert rec.index.device == torch.device("cpu")
+    rec.close_persistence()

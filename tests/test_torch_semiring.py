@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from _qgen import mixed_queries
+from _qgen import mixed_queries, rpq_queries
 from repro.core import (bitset as rbitset, engine as reng, graph as RG,
-                        pattern as RP, semiring as RS, tdr_build as RB,
-                        tdr_query as RQ)
+                        pattern as RP, rpq as RR, semiring as RS,
+                        tdr_build as RB, tdr_query as RQ)
 from repro.kernels import ops as rops
 from repro_torch import (bitset, dfs_baseline, engine, graph as G, pattern,
-                         tdr_build, tdr_query)
+                         rpq, tdr_build, tdr_query)
 from repro_torch.kernels import ops
 from repro_torch.semiring import (BOOLEAN, COUNT, COUNT_CAP, DIST8, DIST16,
                                   by_name)
@@ -469,14 +469,27 @@ def test_answer_mixed_aligns_kinds():
                                                   cap=COUNT_CAP)
 
 
-def test_answer_mixed_rpq_not_ported_yet():
-    """Kind "rpq" passes validation, as in the reference, but its
-    executor is not ported: the batch raises instead of guessing."""
-    _, _, _, idx = _case(0)
-    with pytest.raises(NotImplementedError, match="rpq"):
-        tdr_query.answer_mixed(
-            idx, [(0, 1, pattern.all_of([0])), (0, 2, None, "rpq")],
-            device="cpu")
+def test_answer_mixed_routes_rpq():
+    """Kind "rpq" (a regex AST in place of the pattern) batches through
+    ``rpq_batch`` beside bool and dist queries: every result equals its
+    oracle and the JAX package's ``answer_mixed``.  An unknown kind
+    raises."""
+    rg, ridx, g, idx = _case(0)
+    rng = np.random.default_rng(9)
+    mixed = [(u, v, p, ("bool", "dist")[i % 2])
+             for i, (u, v, p) in enumerate(mixed_queries(rng, rg, 12))]
+    mixed += [(u, v, r, "rpq") for (u, v, r) in rpq_queries(rng, rg, 12)]
+    port = [(u, v, rpq.parse(RR.unparse(x)) if kd == "rpq" else to_port(x),
+             kd) for (u, v, x, kd) in mixed]
+    got = tdr_query.answer_mixed(idx, port, device="cpu")
+    assert got == RQ.answer_mixed(ridx, mixed)
+    for (u, v, x, kd), a in zip(port, got):
+        if kd == "bool":
+            assert a == dfs_baseline.answer_pcr(g, u, v, x)
+        elif kd == "dist":
+            assert a == dfs_baseline.shortest_pcr(g, u, v, x)
+        else:
+            assert a == dfs_baseline.answer_rpq(g, u, v, x)
     with pytest.raises(ValueError, match="kind"):
         tdr_query.answer_mixed(idx, [(0, 1, pattern.all_of([0]), "fuzzy")],
                                device="cpu")

@@ -316,6 +316,35 @@ def test_layout_pin_matches_chain_from_empty_regions():
 
 
 # ------------------------------------------------------- engine operands
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_engine_apply_delta_patches_label_class_stacks(seed):
+    """Cached label-class stacks carry over an update patched, not
+    repacked: each equals packing the new graph's classes, the old
+    engine's stacks are unchanged, their LRU order is kept, and nothing
+    counts as a pack in ``engine.jit_cache_entries``."""
+    rng = np.random.default_rng(seed)
+    g = G.random_graph("er", N_V, 2.0, N_L, seed=seed)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    keys = [((0, 2), True), ((0, 2), False), ((1,), True)]
+    before = [eng.label_class_adjacency(l, reverse=r).clone()
+              for l, r in keys]
+    add, rem = _random_step(rng, g)
+    add.append((0, 1, 2))                      # at least one real change
+    delta = g.apply_updates(add, rem)
+    n0 = engine.jit_cache_entries()
+    eng2 = eng.apply_delta(delta.graph, delta.added, delta.removed,
+                           device="cpu")
+    assert engine.jit_cache_entries() == n0
+    assert list(eng2._label_adj) == list(eng._label_adj) == keys
+    h = delta.graph
+    for (labels, rev), old in zip(keys, before):
+        want = engine.pack_label_class_edges_np(
+            h.src, h.indices, h.labels, h.n_vertices, labels, reverse=rev)
+        assert np.array_equal(bitset.words_to_np(
+            eng2._label_adj[(labels, rev)]), want), (labels, rev)
+        assert torch.equal(eng._label_adj[(labels, rev)], old)
+
+
 @pytest.mark.parametrize("operand", ["dense", "block"])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("seed", [11, 12, 13])
