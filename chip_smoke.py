@@ -100,6 +100,30 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    the default cap, by the reference's rule.  A profiled burst of a
    quarter of the mix, without count requests, gives the device's idle
    share.
+10. The replicated fleet: the built index as a shared store under
+   ``build/`` (``fleet.init_store``, a ``FleetWriter``), three replica
+   processes on the card (``Fleet(dir, 3, backend="matmul",
+   device="cuda")``, each its own CUDA context, the parent's class
+   stacks freed first) behind a ``FleetRouter``, warmed on
+   ``mixed_pool(g, 64, seed=6)``.  16 closed-loop clients route 992
+   requests (768 bool, 96 dist with k = 8, 96 rpq from phase 8's
+   generator, 32 witness; no count: past 131,072 edges ``count_routes``
+   refuses the default cap) while the writer publishes phase 7's batch
+   (b), (c), (a) and (b) again on the new graph, and the busiest replica
+   is SIGKILLed with requests in flight after the second record.  An
+   in-process ``QueryServer.follow`` on the card tails the same log,
+   with launch counts set to 0 just before its bootstrap and read after
+   its tail applies and reads (B1, B2 and B3 must have run, and B4 on
+   its 8 dist reads); it answers 8 probes after each record and the 64
+   reads (16 rpq) that the router sends at ``min_lsn`` = the tip, which
+   must carry the tip or later and equal the follower's.  Every answer
+   equals a direct segment call on a layout-pinned segment index of its
+   LSN, 32 equal the DFS/BFS oracles, the victim is evicted and a
+   replacement reaches ready.  Prints spawn-to-ready and warm seconds,
+   requests/s, p50/p99 and first-request latency per kind, the router's
+   and the fleet's counters, kill-to-ready seconds, publish-to-replicas
+   lag per record from the heartbeats, the follower's ``UpdateStats``
+   per record, and the card's free memory around ``Fleet.start``.
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -146,6 +170,12 @@ N_CLIENTS = 32                 # serving phase: closed-loop client threads
 SERVE_MIX = (("bool", 1536), ("dist", 192), ("rpq", 192), ("witness", 64),
              ("count", 64))    # serving phase: requests per kind
 SERVE_HOPS, SERVE_K = 6, 8
+N_REPLICAS = 3                 # fleet phase: replica processes on the card
+N_FLEET_CLIENTS = 16           # fleet phase: closed-loop client threads
+FLEET_MIX = (("bool", 768), ("dist", 96), ("rpq", 96), ("witness", 32))
+N_PINNED, N_PINNED_RPQ = 64, 16    # fleet phase: reads at min_lsn = tip
+N_FOLLOWER_DIST = 8            # fleet phase: dist reads of the follower
+N_FLEET_ORACLE = 32            # fleet phase: answers held to the oracles
 
 
 def fail(msg: str) -> int:
@@ -588,15 +618,17 @@ def serve_traffic(rpq, serve, g, seed: int, mix: dict):
         [rest[i] for i in order]
 
 
-def run_clients(srv, reqs, on_half=None):
-    """``N_CLIENTS`` closed-loop threads submit ``reqs`` (dealt
-    round-robin) with ``with_lsn``; ``on_half`` runs once half of them are
-    answered.  Returns the wall time and per request ``(answer, lsn,
-    seconds)``; a request that raised holds its exception and lsn None."""
+def run_clients(submit, reqs, n_clients=N_CLIENTS, marks=()):
+    """``n_clients`` closed-loop threads send ``reqs`` (dealt round-robin)
+    through ``submit(u, v, x, kind, **bounds)``, a future of ``(answer,
+    lsn)``; each ``(fraction, fn)`` of ``marks`` runs, in order, once that
+    fraction of the requests is answered.  Returns the wall time and per
+    request ``(answer, lsn, seconds)``; a request that raised holds its
+    exception and lsn None."""
     import threading
     out = [None] * len(reqs)
     done = [0]
-    lock, half = threading.Lock(), threading.Event()
+    cond = threading.Condition()
 
     def client(ids):
         for i in ids:
@@ -605,30 +637,70 @@ def run_clients(srv, reqs, on_half=None):
                 {"hops": SERVE_HOPS} if kind == "count" else {}
             t = time.perf_counter()
             try:
-                ans, lsn = srv.submit(u, v, x, kind=kind, with_lsn=True,
-                                      **kw).result(timeout=600)
+                ans, lsn = submit(u, v, x, kind, **kw).result(timeout=600)
             except Exception as exc:   # noqa: BLE001 — checked by the caller
                 ans, lsn = exc, None
             out[i] = (ans, lsn, time.perf_counter() - t)
-            with lock:
+            with cond:
                 done[0] += 1
-                if done[0] * 2 >= len(reqs):
-                    half.set()
+                cond.notify_all()
 
     threads = [threading.Thread(target=client,
-                                args=(range(j, len(reqs), N_CLIENTS),),
-                                daemon=True) for j in range(N_CLIENTS)]
+                                args=(range(j, len(reqs), n_clients),),
+                                daemon=True) for j in range(n_clients)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
-    if on_half is not None:
-        half.wait(600)
-        on_half()
+    for frac, fn in marks:
+        with cond:
+            cond.wait_for(lambda: done[0] >= frac * len(reqs), 600)
+        fn()
     for t in threads:
         t.join(600)
     if any(t.is_alive() for t in threads) or None in out:
         raise RuntimeError("a serving client did not finish")
     return time.perf_counter() - t0, out
+
+
+def direct_mismatch(ix, lsn, items) -> str | None:
+    """Served requests ``(u, v, x, kind, answer)`` of one LSN against
+    direct segment-backend calls on ``ix``, the index of that LSN (a
+    witness replays on its graph at the segment distance).  Returns a
+    message for the first that differs, or None."""
+    from repro_torch import dfs_baseline, tdr_query
+    by = collections.defaultdict(list)
+    for j, it in enumerate(items):
+        by[it[3]].append(j)
+    want = {}
+    for kind, fn in (
+            ("bool", lambda q: tdr_query.answer_batch(
+                ix, q, backend="segment")),
+            ("dist", lambda q: tdr_query.dist_batch(
+                ix, q, k=SERVE_K, backend="segment")),
+            ("rpq", lambda q: tdr_query.rpq_batch(
+                ix, q, backend="segment"))):
+        if by[kind]:
+            got = fn([items[j][:3] for j in by[kind]])
+            want.update(zip(by[kind], got.tolist()))
+    for j in by["count"]:
+        want[j] = tdr_query.count_routes(
+            ix, *items[j][:3], hops=SERVE_HOPS, backend="segment")
+    if by["witness"]:
+        dw = tdr_query.dist_batch(
+            ix, [items[j][:3] for j in by["witness"]], backend="segment")
+        for j, d in zip(by["witness"], dw.tolist()):
+            path = items[j][4]
+            ok = (path is None) if d < 0 else (
+                len(path) == d and dfs_baseline.verify_witness(
+                    ix.graph, *items[j][:3], path))
+            if not ok:
+                return (f"witness request {items[j][:2]} at lsn {lsn} is "
+                        "wrong")
+    for j, w in want.items():
+        if items[j][4] != w:
+            return (f"{items[j][3]} request {items[j][:2]} at lsn {lsn}: "
+                    f"served {items[j][4]}, direct {w}")
+    return None
 
 
 def serve_phase(torch, g, idx) -> str | None:
@@ -638,7 +710,7 @@ def serve_phase(torch, g, idx) -> str | None:
     failure message, or None."""
     import shutil
     import tempfile
-    from repro_torch import dfs_baseline, engine, rpq, tdr_query
+    from repro_torch import engine, rpq
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     root = Path(__file__).resolve().parent / "build"
@@ -664,7 +736,10 @@ def serve_phase(torch, g, idx) -> str | None:
 
         torch.cuda.synchronize()
         ops.KERNEL_LAUNCHES.clear()
-        wall, out = run_clients(srv, reqs, on_half=update)
+        def submit(u, v, x, kind, **kw):
+            return srv.submit(u, v, x, kind=kind, with_lsn=True, **kw)
+
+        wall, out = run_clients(submit, reqs, marks=[(0.5, update)])
         torch.cuda.synchronize()
         launched = dict(ops.KERNEL_LAUNCHES)
         moved = engine.jit_cache_entries() - n0
@@ -702,39 +777,10 @@ def serve_phase(torch, g, idx) -> str | None:
         at = {0: idx, 1: upd["index"]}
         t0 = time.perf_counter()
         for lsn, ix in at.items():
-            sel = [i for i, o in enumerate(out) if o[1] == lsn]
-            by = collections.defaultdict(list)
-            for i in sel:
-                by[reqs[i][3]].append(i)
-            want = {}
-            for kind, fn in (
-                    ("bool", lambda q: tdr_query.answer_batch(
-                        ix, q, backend="segment")),
-                    ("dist", lambda q: tdr_query.dist_batch(
-                        ix, q, k=SERVE_K, backend="segment")),
-                    ("rpq", lambda q: tdr_query.rpq_batch(
-                        ix, q, backend="segment"))):
-                if by[kind]:
-                    got = fn([reqs[i][:3] for i in by[kind]])
-                    want.update(zip(by[kind], got.tolist()))
-            for i in by["count"]:
-                want[i] = tdr_query.count_routes(
-                    ix, *reqs[i][:3], hops=SERVE_HOPS, backend="segment")
-            if by["witness"]:
-                dw = tdr_query.dist_batch(
-                    ix, [reqs[i][:3] for i in by["witness"]],
-                    backend="segment")
-                for i, d in zip(by["witness"], dw.tolist()):
-                    path = out[i][0]
-                    ok = (path is None) if d < 0 else (
-                        len(path) == d and dfs_baseline.verify_witness(
-                            ix.graph, *reqs[i][:3], path))
-                    if not ok:
-                        return f"witness request {i} at lsn {lsn} is wrong"
-            for i, w in want.items():
-                if out[i][0] != w:
-                    return (f"{reqs[i][3]} request {i} at lsn {lsn}: "
-                            f"served {out[i][0]}, direct {w}")
+            msg = direct_mismatch(ix, lsn, [
+                reqs[i] + (o[0],) for i, o in enumerate(out) if o[1] == lsn])
+            if msg:
+                return msg
         n_at = collections.Counter(o[1] for o in out)
         print(f"serve: every answer equals a direct segment call on the "
               f"index of its LSN ({dict(n_at)} requests per LSN; "
@@ -745,7 +791,7 @@ def serve_phase(torch, g, idx) -> str | None:
         # the device's idle share over a profiled burst of fresh requests
         burst = serve_traffic(rpq, serve, g, seed=12, mix={
             k: c // 4 for k, c in SERVE_MIX if k != "count"})
-        wall_p, busy, top, _ = profile(torch, lambda: run_clients(srv, burst))
+        wall_p, busy, top, _ = profile(torch, lambda: run_clients(submit, burst))
         print(f"profile serve burst ({len(burst)} requests): wall "
               f"{wall_p:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall_p):.1f}% idle); top device time: "
@@ -770,6 +816,346 @@ def serve_phase(torch, g, idx) -> str | None:
         srv.stop(drain=False)
         srv.close_persistence()
         shutil.rmtree(tmp, ignore_errors=True)
+    return None
+
+
+def fleet_phase(torch, g, cfg, idx) -> str | None:
+    """Phase 10: a store of the built index, a ``FleetWriter``, three
+    replica processes on the card behind a ``FleetRouter``, closed-loop
+    traffic with four published records and a replica SIGKILLed, pinned
+    reads against an in-process follower on the card, every answer
+    against a direct segment call at its LSN.  Returns a failure
+    message, or None."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch import dfs_baseline, engine, rpq, tdr_build
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet, serve
+    from repro_torch.launch.router import FleetRouter
+
+    gib = 2.0 ** 30
+    # the replicas and the follower are four more CUDA contexts with
+    # their own class stacks: give back the parent's first
+    for eng in idx._engines.values():
+        eng._label_adj.clear()
+    gc.collect()   # earlier phases' servers and indexes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / gib
+    print(f"fleet: this process holds {held:.2f} GiB of the card before "
+          "the fleet starts")
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet_", dir=root)
+    cond = threading.Condition()
+    spawned, ready = {}, {}    # replica name -> perf_counter at spawn/ready
+    published, lag = {}, {}    # lsn -> perf_counter at publish / lag s
+    flt = fleet.Fleet(tmp, N_REPLICAS, backend="matmul", device="cuda",
+                      hb_s=0.1, hb_timeout_s=300)
+    spawn = flt._spawn_locked
+
+    def spawn_timed():
+        r = spawn()
+        spawned[r.name] = time.perf_counter()
+        return r
+
+    def on_membership():
+        """Heartbeats, ready events and deaths: note when each replica
+        became ready and when every ready one reached a published LSN."""
+        now = time.perf_counter()
+        members = flt.members()
+        with cond:
+            for r in members:
+                ready.setdefault(r.name, now)
+            for lsn, t in published.items():
+                if lsn not in lag and members and \
+                        all(r.lsn >= lsn for r in members):
+                    lag[lsn] = now - t
+            cond.notify_all()
+
+    flt._spawn_locked = spawn_timed
+    flt.on_membership = on_membership
+    # the replicas share the host's cores with this process: each gets an
+    # OpenMP pool of its share (oversubscribed pools spin, not wait)
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(
+        max(1, (os.cpu_count() or 1) // (N_REPLICAS + 1)))
+    real_update = tdr_build.update_index
+    applies = []   # the in-process follower's (UpdateStats, wall s)
+
+    def update_spy(*args, stats=None, **kwargs):
+        st = tdr_build.UpdateStats() if stats is None else stats
+        t0 = time.perf_counter()
+        out = real_update(*args, stats=st, **kwargs)
+        torch.cuda.synchronize()
+        applies.append((st, time.perf_counter() - t0))
+        return out
+
+    writer = fol = None
+    stopped = False
+    try:
+        free0 = torch.cuda.mem_get_info()[0]
+        fleet.init_store(idx, tmp)
+        writer = fleet.FleetWriter(tmp)
+        torch.cuda.empty_cache()   # the index the writer loaded is gone
+        graphs = [writer.graph]
+        if not np.array_equal(graphs[0].indices, g.indices):
+            return "the fleet writer reconstructed another graph"
+        t0 = time.perf_counter()
+        flt.start(ready_timeout_s=300)
+        start_s = time.perf_counter() - t0
+        free1 = torch.cuda.mem_get_info()[0]
+        router = FleetRouter(flt)
+        t0 = time.perf_counter()
+        flt.warm(serve.mixed_pool(g, 64, seed=6))
+        warm_s = time.perf_counter() - t0
+        print(f"fleet: {N_REPLICAS} replicas ready in {start_s:.3f} s "
+              f"(spawn to ready: " + ", ".join(
+                  f"{n} {ready[n] - spawned[n]:.3f} s" for n in spawned)
+              + f"); warm on 64 boolean patterns {warm_s:.3f} s; card "
+              f"memory free {free0 / gib:.2f} GiB before Fleet.start, "
+              f"{free1 / gib:.2f} GiB after")
+
+        # the in-process follower: bootstrap, tail applies and reads
+        tdr_build.update_index = update_spy
+        torch.cuda.synchronize()
+        ops.KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        fol = serve.QueryServer.follow(tmp, backend="matmul",
+                                       device="cuda", poll_s=0.02)
+        fol.start()
+        boot_s = time.perf_counter() - t0
+
+        reqs = serve_traffic(rpq, serve, g, seed=7, mix=dict(FLEET_MIX))
+        batches = update_batches(np.random.default_rng(2), g)
+        records = [batches[1], batches[2], batches[0], batches[1]]
+        probes = serve.mixed_pool(g, 8, seed=8)
+        fol_reads, kill, packs = [], {}, []
+
+        def publish(j):
+            def fn():
+                add, rem = records[j][1](graphs[-1])
+                lsn = writer.publish(add, rem)
+                with cond:
+                    published[lsn] = time.perf_counter()
+                graphs.append(writer.graph)
+                if j == 1:   # SIGKILL the busiest replica, mid-stream
+                    victim = max(flt.members(), key=lambda r: len(r.pending))
+                    kill.update(name=victim.name, inflight=len(
+                        victim.pending), names=set(spawned),
+                        t=time.perf_counter())
+                    victim.kill()
+                # the follower answers the probes at this LSN, over the
+                # class stacks its tail apply patched or rebuilt
+                if not fol.wait_for_lsn(lsn, timeout=600):
+                    raise RuntimeError(f"follower stuck below lsn {lsn}")
+                n0 = engine.LABEL_CLASS_PACKS["stacks"]
+                futs = [fol.submit(*q, with_lsn=True) for q in probes]
+                for f in futs:
+                    f.result(timeout=600)
+                packs.append(engine.LABEL_CLASS_PACKS["stacks"] - n0)
+                fol_reads.extend(zip((q + ("bool",) for q in probes), futs))
+            return fn
+
+        def submit(u, v, x, kind, **kw):
+            return router.submit(u, v, x, kind=kind, **kw)
+
+        marks = [((j + 1) / (len(records) + 1), publish(j))
+                 for j in range(len(records))]
+        # the card's busy share: the replicas are other processes, which
+        # torch.profiler here cannot see; nvidia-smi samples the card
+        smi, done = [], threading.Event()
+
+        def sample():
+            while not done.wait(1.0):
+                r = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu,memory.used",
+                     "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True)
+                if r.returncode == 0:
+                    smi.append([int(x) for x in
+                                r.stdout.splitlines()[0].split(",")])
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            wall, out = run_clients(submit, reqs, N_FLEET_CLIENTS, marks)
+        finally:
+            done.set()
+            sampler.join()
+        free2 = torch.cuda.mem_get_info()[0]
+        raised = [(reqs[i][3], o[0]) for i, o in enumerate(out)
+                  if o[1] is None]
+        if raised:
+            return (f"{len(raised)} routed requests raised, the first a "
+                    f"{raised[0][0]}: {raised[0][1]!r}")
+        with cond:
+            if not cond.wait_for(lambda: any(
+                    n not in kill["names"] for n in ready), 300):
+                return "the replacement replica never became ready"
+        new = next(n for n in ready if n not in kill["names"])
+
+        # consistent reads at the tip, against the in-process follower
+        tip = writer.last_lsn
+        pick = {k: [q for q in reqs if q[3] == k] for k, _ in FLEET_MIX}
+        pinned = pick["bool"][:N_PINNED - N_PINNED_RPQ] + \
+            pick["rpq"][:N_PINNED_RPQ]
+        dist_reads = pick["dist"][:N_FOLLOWER_DIST]
+        rfuts = [router.submit(u, v, x, kind=kind, min_lsn=tip,
+                               lsn_timeout=300,
+                               **({"k": SERVE_K} if kind == "dist" else {}))
+                 for u, v, x, kind in pinned + dist_reads]
+        if not fol.wait_for_lsn(tip, timeout=600):
+            return f"the follower never reached lsn {tip}"
+        n_b4 = ops.KERNEL_LAUNCHES["lane_matmul"]
+        ffuts = [fol.submit(u, v, x, kind=kind, with_lsn=True,
+                            **({"k": SERVE_K} if kind == "dist" else {}))
+                 for u, v, x, kind in pinned + dist_reads]
+        routed = [f.result(timeout=600) for f in rfuts]
+        direct = [f.result(timeout=600) for f in ffuts]
+        probed = [(q, f.result(timeout=600)) for q, f in fol_reads]
+        torch.cuda.synchronize()
+        launched = dict(ops.KERNEL_LAUNCHES)
+        b4_dist = launched.get("lane_matmul", 0) - n_b4
+        tdr_build.update_index = real_update
+        n_redirected = router.redirected
+        for q, (a, la), (b, lb) in zip(pinned + dist_reads, routed, direct):
+            if la < tip or lb < tip:
+                return (f"pinned {q[3]} read served at lsn {la} / follower "
+                        f"{lb}, below the tip {tip}")
+            if a != b:
+                return (f"pinned {q[3]} read {q[:2]}: fleet {a}, in-process "
+                        f"follower {b}")
+        print(f"fleet: {len(pinned)} reads at min_lsn={tip} ({N_PINNED_RPQ} "
+              f"rpq) and {len(dist_reads)} dist reads equal the in-process "
+              f"follower's; follower bootstrap {boot_s:.3f} s, launches over "
+              f"its bootstrap, tail applies and reads {launched}, "
+              f"lane_matmul on its dist reads {b4_dist}")
+        for kname in ("bitset_matmul", "way_filter", "block_sparse_matmul"):
+            if launched.get(kname, 0) <= 0:
+                return f"{kname} was not launched by the in-process follower"
+        if b4_dist <= 0:
+            return "lane_matmul was not launched on the follower's dist reads"
+
+        # membership, latency and lag
+        lat = collections.defaultdict(list)
+        first = {}
+        for (_, _, _, kind), (_, _, sec) in zip(reqs, out):
+            lat[kind].append(sec * 1e3)
+            first.setdefault(kind, sec * 1e3)
+        print(f"fleet: {len(reqs)} routed requests from {N_FLEET_CLIENTS} "
+              f"clients in {wall:.3f} s = {len(reqs) / wall:.1f} requests/s;"
+              f" card memory free {free2 / gib:.2f} GiB after the stream; "
+              f"nvidia-smi over the stream ({len(smi)} samples, 1 s apart): "
+              + (f"utilization mean {np.mean([u for u, _ in smi]):.1f}%, "
+                 f"memory used peak {max(m for _, m in smi)} MiB" if smi
+                 else "not measured"))
+        print("fleet latency ms (p50 / p99; first request): " + "; ".join(
+            f"{k} {np.percentile(v, 50):.2f} / {np.percentile(v, 99):.2f}; "
+            f"{first[k]:.2f}" for k, v in lat.items()))
+        print(f"fleet: redispatched {router.redispatched}, redirected "
+              f"{n_redirected}, evictions {flt.evictions}, respawns "
+              f"{flt.respawns}; SIGKILL of {kill['name']} with "
+              f"{kill['inflight']} requests in flight, {new} ready "
+              f"{ready[new] - kill['t']:.3f} s after the kill (spawn to "
+              f"ready {ready[new] - spawned[new]:.3f} s)")
+        print("fleet: publish to every ready replica at the LSN (from the "
+              "heartbeats): " + ", ".join(
+                  f"lsn {k} ({records[k - 1][0]}) {v * 1e3:.1f} ms"
+                  for k, v in sorted(lag.items())))
+        print("fleet: in-process follower's update_index per record: "
+              + "; ".join(f"{name}: mode {st.mode}, tail {st.tail or '-'}, "
+                          f"{sec:.3f} s, class stacks its 8 probes packed "
+                          f"after it {n}" for (name, _), (st, sec), n in zip(
+                              records, applies, packs)))
+        if flt.evictions < 1 or flt.respawns < 1:
+            return (f"evictions {flt.evictions}, respawns {flt.respawns}: "
+                    "the SIGKILLed replica was not replaced")
+        if kill["inflight"] < 1:
+            return "the SIGKILLed replica had no request in flight"
+        if len(applies) != len(records):
+            return (f"the follower applied {len(applies)} records, not "
+                    f"{len(records)}")
+        # the card back for the checks: the follower and the replicas go
+        fol.stop(drain=False)
+        fol = None
+        flt.stop()
+        stopped = True
+        torch.cuda.empty_cache()
+        free3 = torch.cuda.mem_get_info()[0]
+        print(f"fleet: card memory free {free3 / gib:.2f} GiB after the "
+              "fleet and the follower stopped")
+
+        # every answer against a direct segment call at its LSN
+        items = collections.defaultdict(list)
+        for q, (a, lsn, _) in zip(reqs, out):
+            items[lsn].append(q + (a,))
+        for q, (a, lsn) in zip(pinned + dist_reads, routed + direct):
+            items[lsn].append(q + (a,))
+        for q, (a, lsn) in probed:
+            items[lsn].append(q + (a,))
+        t0 = time.perf_counter()
+        for lsn in sorted(items):
+            ix = idx if lsn == 0 else tdr_build.build_index(
+                graphs[lsn], cfg, layout=idx.disc, backend="segment")
+            msg = direct_mismatch(ix, lsn, items[lsn])
+            if msg:
+                return "fleet: " + msg
+            del ix
+            torch.cuda.empty_cache()
+        print(f"fleet: every answer (routed, pinned, follower) equals a "
+              f"direct segment call on the index of its LSN (" + ", ".join(
+                  f"lsn {k}: {len(v)}" for k, v in sorted(items.items()))
+              + f"; {time.perf_counter() - t0:.1f} s)")
+        if len(items) < 3:
+            return f"answers came from LSNs {sorted(items)} only"
+
+        # a sample against the DFS/BFS oracles on the graph of its LSN
+        flat = [(it, lsn) for lsn in sorted(items) for it in items[lsn]]
+        share = {"bool": 16, "dist": 8, "rpq": 4, "witness": 4}
+        sample = []
+        for kind, n in share.items():
+            of = [f for f in flat if f[0][3] == kind]
+            sample += of[::max(1, len(of) // n)][:n]
+        for (u, v, x, kind, ans), lsn in sample:
+            gl = graphs[lsn]
+            if kind == "bool":
+                ok = ans == dfs_baseline.answer_pcr(gl, u, v, x)
+            elif kind == "rpq":
+                ok = ans == dfs_baseline.answer_rpq(gl, u, v, x)
+            else:
+                d = dfs_baseline.shortest_pcr(gl, u, v, x)
+                if kind == "dist":
+                    ok = ans == (d if 0 <= d <= SERVE_K else -1)
+                else:
+                    ok = (ans is None) if d < 0 else (
+                        len(ans) == d and dfs_baseline.verify_witness(
+                            gl, u, v, x, ans))
+            if not ok:
+                return (f"fleet: {kind} request {(u, v)} at lsn {lsn} "
+                        f"differs from the oracle: served {ans}")
+        print(f"fleet oracle: {len(sample)} answers ("
+              + ", ".join(f"{n} {k}" for k, n in share.items())
+              + ") equal the DFS/BFS oracles at their LSNs")
+        if len(sample) != N_FLEET_ORACLE:
+            return f"the oracle sample holds {len(sample)} answers"
+    finally:
+        tdr_build.update_index = real_update
+        if omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+        if fol is not None:
+            fol.stop(drain=False)
+        if not stopped:
+            flt.stop()
+        if writer is not None:
+            writer.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
     return None
 
 
@@ -1313,6 +1699,16 @@ def main() -> int:
 
     # ---- 9. the micro-batching server ---------------------------------
     msg = serve_phase(torch, g, idx)
+    if msg:
+        return fail(msg)
+
+    # ---- 10. the replicated fleet -------------------------------------
+    # the kernel checks' operands go before four more processes share the
+    # card (a class matrix keeps its whole label-class stack alive)
+    del a_dist, x_dist, a_rows, a_cols
+    spied.clear()
+    sparse_calls.clear()
+    msg = fleet_phase(torch, g, cfg, idx)
     if msg:
         return fail(msg)
 

@@ -239,7 +239,7 @@ class Engine:
         msg = (f"engine: {what} needs {nbytes / 1e6:.0f} MB, over the dense "
                f"cap of {self.dense_cap() / 1e6:.0f} MB")
         if self.device.type == "cuda":
-            self._label_adj.clear()
+            self._drop_label_stacks(len(self._label_adj))
             if nbytes <= self.dense_cap():
                 return True
             raise DenseCapError(msg + "; pass backend='segment' to run "
@@ -276,15 +276,34 @@ class Engine:
         if key in self._label_adj:
             self._label_adj.move_to_end(key)                 # refresh LRU
         else:
-            while len(self._label_adj) >= self.LABEL_ADJ_CACHE:
-                self._label_adj.popitem(last=False)
+            self._drop_label_stacks(
+                len(self._label_adj) - self.LABEL_ADJ_CACHE + 1)
             LABEL_CLASS_PACKS["stacks"] += 1
             g = self.graph
-            self._label_adj[key] = bitset.np_to_words(
-                pack_label_class_edges_np(g.src, g.indices, g.labels,
-                                          g.n_vertices, labels,
-                                          reverse=reverse), self.device)
+            packed = pack_label_class_edges_np(g.src, g.indices, g.labels,
+                                               g.n_vertices, labels,
+                                               reverse=reverse)
+            try:
+                stack = bitset.np_to_words(packed, self.device)
+            except torch.OutOfMemoryError:
+                # another process on the card took what dense_fits saw
+                # free: make room from this cache, as dense_fits would
+                self._drop_label_stacks(len(self._label_adj))
+                stack = bitset.np_to_words(packed, self.device)
+            self._label_adj[key] = stack
         return self._label_adj[key]
+
+    def _drop_label_stacks(self, n: int) -> None:
+        """Evict the ``n`` least recently used class stacks.  On a card
+        their memory goes back to the device, not to this process's
+        allocator cache: other processes sharing the card (the replicas
+        of a fleet) cannot allocate from a cache they do not own."""
+        if n <= 0:
+            return
+        for _ in range(min(n, len(self._label_adj))):
+            self._label_adj.popitem(last=False)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- primitives
     def segment_or(self, values: torch.Tensor, segment_ids: torch.Tensor,

@@ -68,10 +68,16 @@ label-class stack packed after warmup):
   keep being answered from the last-good index.  ``compact_every``
   checkpoints periodically, truncating the log.
 
-``ServeStats.applied_lsn`` exposes the served index's log position for
-replica routing; ``wait_for_lsn`` and ``_swap_in`` are the replica side's
-halves.  (The log-tailing follower of the JAX package, ``follow``, is not
-part of this module yet.)
+* **Replication.**  ``QueryServer.follow(dir)`` bootstraps a read
+  replica over a store some *other* process writes
+  (``launch.fleet.FleetWriter``): the newest valid snapshot, loaded onto
+  the caller's device, plus a replay of the log behind it.  Once
+  started, a maintenance thread tails the log through a read-only
+  ``deltalog.LogReader`` and applies each new record through
+  ``update_index`` behind the same barrier as ``submit_update``, which
+  a follower refuses.  ``ServeStats.applied_lsn`` advertises its log
+  position for ``launch.router.FleetRouter``; ``wait_for_lsn`` holds a
+  consistent read until the tail reaches it.
 
 ``repro_torch.engine.jit_cache_entries`` counts what the hot path
 materialises per new shape or content; its delta over a window of
@@ -95,6 +101,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import bitset
 from .. import deltalog as deltalog_mod
 from .. import engine as engine_mod
 from .. import graph as graph_mod
@@ -289,7 +296,14 @@ class QueryServer:
         self._log: "deltalog_mod.DeltaLog | None" = None
         self._persist_dir: str | None = None
         self._updates_since_snap = 0
-        # broadcasts every applied_lsn advance (wait_for_lsn)
+        # replication state — attached by follow(): a read-only tailing
+        # cursor over a log some *other* process appends to, plus the
+        # maintenance thread applying what it yields.  _applied_cond
+        # broadcasts every applied_lsn advance (wait_for_lsn).
+        self._reader: "deltalog_mod.LogReader | None" = None
+        self._poll_s = 0.05
+        self._following = False
+        self._tail_thread: threading.Thread | None = None
         self._applied_cond = threading.Condition(self._lock)
 
     def memory_stats(self) -> dict:
@@ -307,12 +321,25 @@ class QueryServer:
         self._thread = threading.Thread(target=self._loop,
                                         name="tdr-serve", daemon=True)
         self._thread.start()
+        if self._reader is not None and self._tail_thread is None:
+            # follower replica: tail the shared log alongside serving
+            self._following = True
+            self._tail_thread = threading.Thread(
+                target=self._tail_loop, name="tdr-follow", daemon=True)
+            self._tail_thread.start()
         return self
 
     def stop(self, drain: bool = True) -> None:
         """Stop the scheduler.  ``drain`` serves whatever is queued first;
         otherwise queued futures are cancelled.  Later ``submit`` calls
         raise (their futures could never resolve) until ``start`` again."""
+        tail = self._tail_thread
+        if tail is not None:
+            # stop tailing first, while the scheduler is still alive to
+            # process any barrier the tail thread is waiting on
+            self._following = False
+            tail.join()
+            self._tail_thread = None
         thread = self._thread
         if thread is None:
             return
@@ -469,6 +496,10 @@ class QueryServer:
         (``ServeStats.degraded``).  The new index is built on the served
         index's device."""
         cfg = self.config
+        if self._reader is not None:
+            raise RuntimeError(
+                "follower replicas apply updates from the shared log; "
+                "publish through the fleet writer instead")
         st = tdr_build.UpdateStats()
         with self._update_lock:
             # self.index is stable here: it only changes at *our* barrier
@@ -701,6 +732,138 @@ class QueryServer:
                 continue
             return idx, snap_lsn
         raise RecoveryError("no usable snapshot: " + "; ".join(problems))
+
+    # ---------------------------------------------------------- follower
+    @classmethod
+    def follow(cls, directory: str, config: ServeConfig | None = None,
+               *, poll_s: float = 0.05, device="cuda",
+               **overrides) -> "QueryServer":
+        """Bootstrap a read replica over a *shared* persist directory:
+        restore the newest valid snapshot onto ``device`` (the card by
+        default; it raises without one), replay the delta log behind it
+        through a read-only ``deltalog.LogReader``, and return a stopped
+        server whose ``start()`` both serves queries and keeps tailing
+        the log (polling every ``poll_s``) — each new record a single
+        writer appends is applied through ``update_index`` on the served
+        index's device, behind the usual quiesce barrier, and
+        ``ServeStats.applied_lsn`` advertises the replica's log position
+        for router placement.
+
+        The replica never writes to the shared store: ``submit_update``
+        is refused (updates flow writer → log → every replica), and
+        compaction by the writer is survived by re-bootstrapping from
+        the newest snapshot when the log base passes the cursor."""
+        device = bitset.resolve_device(device)
+        cfg = config or ServeConfig()
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        reader = deltalog_mod.LogReader(
+            os.path.join(directory, LOG_NAME))
+        idx, applied = cls._bootstrap_replica(directory, cfg, reader,
+                                              device)
+        server = cls(idx, cfg)
+        server._reader = reader
+        server._persist_dir = directory
+        server._poll_s = poll_s
+        server.stats.applied_lsn = applied
+        return server
+
+    @classmethod
+    def _bootstrap_replica(cls, directory: str, cfg: ServeConfig,
+                           reader: "deltalog_mod.LogReader", device):
+        """Newest valid snapshot at/past the log base, loaded onto
+        ``device``, plus a replay of the reader to the current tip there.
+        Returns ``(index, applied_lsn)`` with the reader's cursor left at
+        ``applied_lsn``."""
+        idx, snap_lsn = cls._newest_valid_snapshot(directory,
+                                                   reader.base_lsn, device)
+        reader.seek(snap_lsn)
+        applied = snap_lsn
+        while True:
+            recs = reader.poll()
+            if not recs:
+                return idx, applied
+            for lsn, added, removed in recs:
+                delta = idx.graph.apply_updates(added, removed)
+                idx = tdr_build.update_index(
+                    idx, delta, backend=cfg.backend,
+                    rebuild_threshold=cfg.update_rebuild_threshold,
+                    device=device)
+                applied = lsn
+
+    def _tail_loop(self) -> None:
+        """Follower maintenance thread: poll the shared log, apply each
+        new record behind a barrier.  Failures never kill the thread —
+        the replica flips ``ServeStats.degraded``, keeps answering reads
+        from the last-good index, and retries (the record is re-delivered
+        by rewinding the cursor), exactly the submit_update degraded-mode
+        contract in replicated form."""
+        err_sleep = min(1.0, 10 * self._poll_s)
+        while self._following:
+            try:
+                recs = self._reader.poll()
+            except deltalog_mod.LogCompactedPast:
+                # the writer compacted past our cursor: the records we
+                # need are gone — re-bootstrap from the newest snapshot
+                try:
+                    self._refollow()
+                except Exception:
+                    with self._lock:
+                        self.stats.degraded = True
+                    time.sleep(err_sleep)
+                continue
+            except Exception:
+                with self._lock:
+                    self.stats.degraded = True
+                time.sleep(err_sleep)
+                continue
+            applied_all = True
+            for lsn, added, removed in recs:
+                if not self._following:
+                    return
+                try:
+                    if not self._apply_replicated(lsn, added, removed):
+                        return   # scheduler is shutting down
+                except Exception:
+                    # rewind so the record is re-delivered next poll
+                    self._reader.seek(lsn - 1)
+                    with self._lock:
+                        self.stats.degraded = True
+                        self.stats.update_failures += 1
+                    applied_all = False
+                    time.sleep(err_sleep)
+                    break
+            if not recs and applied_all:
+                time.sleep(self._poll_s)
+
+    def _apply_replicated(self, lsn: int, added, removed) -> bool:
+        """Apply one shared-log record on a follower: the maintenance +
+        barrier machinery of ``submit_update`` minus the write-ahead
+        append (the record came *from* the log — it is already durable).
+        False when the server is stopping underneath us."""
+        cfg = self.config
+        with self._update_lock:
+            if lsn <= self.stats.applied_lsn:
+                return True   # overlap after a snapshot re-bootstrap
+            delta = self.index.graph.apply_updates(added, removed)
+            new_idx = self._with_retries(
+                lambda: tdr_build.update_index(
+                    self.index, delta, backend=cfg.backend,
+                    rebuild_threshold=cfg.update_rebuild_threshold,
+                    device=self.index.device))
+            return self._swap_in(new_idx, lsn)
+
+    def _refollow(self) -> None:
+        """Recover from ``LogCompactedPast``: rebuild the served state
+        from the newest snapshot + log replay on the served index's
+        device and swap it in as one barriered update (the reader's
+        cursor lands on the new tip)."""
+        cfg = self.config
+        with self._update_lock:
+            idx, applied = self._bootstrap_replica(
+                self._persist_dir, cfg, self._reader, self.index.device)
+            if applied > self.stats.applied_lsn:
+                self._swap_in(idx, applied)
 
     def _swap_in(self, new_idx, lsn: int) -> bool:
         """Swap ``new_idx`` in at ``lsn`` through the scheduler barrier

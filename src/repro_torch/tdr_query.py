@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import weakref
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -584,20 +585,34 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
 class ExactExecutor:
     """Phase-2 executor bound to one (index, engine) pair: holds the host
     mirrors for per-chunk corridor compaction and the cached full-graph
-    incidence."""
+    incidence.
+
+    It holds the pair weakly: the engine caches its executor, and a
+    strong reference back would make index, engine and executor a cycle
+    that only the cyclic collector frees, so a dropped index (a server's
+    pre-update one) would keep its engine's device operands, class stacks
+    included, until a full collection."""
 
     # cap on the padded-incidence gather transient (bytes); beyond it the
     # round falls back to packed segment reductions (extreme hub skew)
     GATHER_BYTES_CAP = 1 << 28
 
     def __init__(self, index: TDRIndex, eng: "engine_mod.Engine"):
-        self.index = index
-        self.engine = eng
+        self._index = weakref.ref(index)
+        self._engine = weakref.ref(eng)
         g = index.graph
         self.src_np = g.src
         self.dst_np = np.asarray(g.indices)
         self.lab_np = np.asarray(g.labels)
         self._full_inc: tuple | None = None
+
+    @property
+    def index(self) -> TDRIndex:
+        return self._index()
+
+    @property
+    def engine(self) -> "engine_mod.Engine":
+        return self._engine()
 
     def special_labels(self, plan: QueryPlan,
                        jobs: np.ndarray) -> tuple[int, ...]:

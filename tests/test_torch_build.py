@@ -302,6 +302,58 @@ def test_label_adjacency_cache_is_bounded():
     assert len(eng._label_adj) <= engine.Engine.LABEL_ADJ_CACHE
 
 
+def test_label_adjacency_makes_room_when_the_device_runs_out(monkeypatch):
+    """A class stack whose copy to the device runs out of memory (another
+    process on the card took what the cap saw free) drops the cached
+    stacks and is copied again; the stack is the one packed."""
+    g = G.erdos_renyi(40, 2.0, 8, seed=0)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    for l in range(3):
+        eng.label_class_adjacency((l,))
+    real, calls = bitset.np_to_words, []
+
+    def once_out_of_memory(a, device):
+        calls.append(len(eng._label_adj))
+        if len(calls) == 1:
+            raise torch.OutOfMemoryError("out of memory")
+        return real(a, device)
+
+    monkeypatch.setattr(bitset, "np_to_words", once_out_of_memory)
+    got = eng.label_class_adjacency((5, 6))
+    assert calls == [3, 0] and list(eng._label_adj) == [((5, 6), True)]
+    want = engine.pack_label_class_edges_np(g.src, g.indices, g.labels,
+                                            g.n_vertices, (5, 6))
+    np.testing.assert_array_equal(bitset.words_to_np(got), want)
+
+
+@pytest.mark.parametrize("backend", ["segment", "matmul"])
+def test_dropped_index_frees_its_engine_without_the_collector(backend):
+    """An index that answered queries (its engine caches a phase-2
+    executor) is freed, engine and device operands with it, as soon as
+    the last reference goes: no cycle waits for the cyclic collector.  A
+    server drops its pre-update index at every swap."""
+    import gc
+    import weakref
+    from repro_torch import pattern, tdr_query
+    g = G.erdos_renyi(120, 3.0, 6, seed=0)
+    gc.disable()
+    try:
+        idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),
+                                    backend=backend, device="cpu")
+        qs = [(u, (u * 7) % 120, pattern.all_of([u % 6]))
+              for u in range(24)]
+        tdr_query.answer_batch(idx, qs, backend=backend, device="cpu",
+                               exact_mode="full")
+        tdr_query.dist_batch(idx, qs[:4], backend=backend, device="cpu")
+        eng = idx.engine(backend)
+        assert eng._executor.index is idx
+        alive = (weakref.ref(idx), weakref.ref(eng))
+        del idx, eng
+        assert [r() for r in alive] == [None, None]
+    finally:
+        gc.enable()
+
+
 def test_index_caches_engines_and_adjacency():
     g = G.erdos_renyi(30, 2.0, 4, seed=0)
     idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG),

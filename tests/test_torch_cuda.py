@@ -743,3 +743,152 @@ def test_query_server_on_card_matches_direct(cuda, tmp_path):
             assert torch.equal(getattr(rec.index, f), getattr(live, f)), f
     finally:
         rec.close_persistence()
+
+
+@pytest.mark.gpu
+def test_label_stack_eviction_returns_memory_to_the_card(cuda):
+    """A class stack evicted from the engine's LRU on the card gives its
+    memory back to the device, where processes sharing the card (fleet
+    replicas) can allocate it, instead of to this process's allocator
+    cache: evicting an 8-class stack for a 2-class one shrinks what the
+    process reserves by the difference."""
+    g = G.random_graph("er", 8192, 3.0, 8, seed=22)
+    eng = engine.Engine(g, engine.EngineConfig(backend="matmul"))
+    one = 8192 * bitset.n_words(8192) * 4          # one class matrix
+    eng.label_class_adjacency(tuple(range(7)))     # 8 classes, oldest
+    for k in range(1, eng.LABEL_ADJ_CACHE):
+        eng.label_class_adjacency((k,), reverse=False)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    eng.label_class_adjacency((7,))                # 2 classes: evicts
+    torch.cuda.synchronize()
+    assert len(eng._label_adj) == eng.LABEL_ADJ_CACHE
+    assert tuple(range(7)) not in {k for k, _ in eng._label_adj}
+    assert before - torch.cuda.memory_reserved() >= 6 * one - (2 << 20)
+
+
+# ---------------------------------------------------- replicated fleet
+def _fleet_steps(g, rng, n):
+    """``n`` update batches (inserts, deletions, label changes) and the
+    graph after each, the first entry being ``g``."""
+    graphs, steps = [g], []
+    for _ in range(n):
+        cur = graphs[-1]
+        e = rng.choice(cur.n_edges, size=3, replace=False)
+        rem = [(int(cur.src[i]), int(cur.indices[i]), int(cur.labels[i]))
+               for i in e]
+        add = [(u, v, (lab + 1) % cur.n_labels) for u, v, lab in rem[:1]]
+        add += [(int(rng.integers(cur.n_vertices)),
+                 int(rng.integers(cur.n_vertices)),
+                 int(rng.integers(cur.n_labels))) for _ in range(4)]
+        add = [a for a in add if a[0] != a[1]]
+        steps.append((add, rem[1:]))
+        graphs.append(cur.apply_updates(add, rem[1:]).graph)
+    return graphs, steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["matmul", "segment"])
+def test_follower_on_card_matches_cpu_follower(cuda, backend, tmp_path):
+    """A follower on the card tails a small store through update_index
+    on the card, and its answers (bool, dist, rpq) equal a CPU
+    follower's at every LSN; both stamp the same LSN."""
+    from repro_torch.launch import fleet, serve
+    g = G.random_graph("er", 300, 3.0, 6, seed=14)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    d = str(tmp_path / "store")
+    fleet.init_store(tdr_build.build_index(g, cfg, device="cpu"), d)
+    writer = fleet.FleetWriter(d)
+    card = serve.QueryServer.follow(d, backend=backend, poll_s=0.01)
+    host = serve.QueryServer.follow(d, poll_s=0.01, device="cpu")
+    pool = serve.mixed_pool(g, 24, seed=15)
+    rqs = _rpq_queries(np.random.default_rng(16), 300, 8)
+    graphs, steps = _fleet_steps(g, np.random.default_rng(17), 4)
+    try:
+        assert card.index.device.type == "cuda"
+        card.start()
+        host.start()
+        for lsn in range(len(graphs)):
+            if lsn:
+                assert writer.publish(*steps[lsn - 1]) == lsn
+            answers = []
+            for srv in (card, host):
+                assert srv.wait_for_lsn(lsn, timeout=120)
+                futs = [srv.submit(*q, with_lsn=True) for q in pool]
+                futs += [srv.submit(*q, kind="dist", k=6, with_lsn=True)
+                         for q in pool[:8]]
+                futs += [srv.submit(*q, kind="rpq", with_lsn=True)
+                         for q in rqs]
+                answers.append([f.result(timeout=120) for f in futs])
+            assert answers[0] == answers[1], lsn
+            assert {s for _, s in answers[0]} == {lsn}
+        assert card.index.device.type == "cuda"
+    finally:
+        card.stop(drain=False)
+        host.stop(drain=False)
+        writer.close()
+
+
+@pytest.mark.gpu
+def test_fleet_on_card_matches_direct_cpu_calls(cuda, tmp_path,
+                                                monkeypatch):
+    """Two replica processes on the card behind a FleetRouter: every
+    routed answer (bool, dist, rpq, witness length) equals a direct CPU
+    call on the graph of its stamped LSN, and consistent reads carry at
+    least the pinned LSN."""
+    from repro_torch.launch import fleet, serve
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")   # the replicas' pools
+    from repro_torch.launch.router import FleetRouter
+    g = G.random_graph("er", 300, 3.0, 6, seed=18)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    d = str(tmp_path / "store")
+    idx0 = tdr_build.build_index(g, cfg, device="cpu")
+    fleet.init_store(idx0, d)
+    writer = fleet.FleetWriter(d)
+    graphs, steps = _fleet_steps(g, np.random.default_rng(19), 3)
+    pool = serve.mixed_pool(g, 24, seed=20)
+    rqs = _rpq_queries(np.random.default_rng(21), 300, 8)
+    sent, at_lsn = [], {0: idx0}
+    try:
+        with fleet.Fleet(d, 2, backend="matmul", hb_s=0.1,
+                         hb_timeout_s=300) as flt:
+            assert len(flt.members()) == 2
+            router = FleetRouter(flt)
+            for lsn in range(len(graphs)):
+                if lsn:
+                    writer.publish(*steps[lsn - 1])
+                pin = {"min_lsn": lsn, "lsn_timeout": 120} if lsn else {}
+                sent += [(q, "bool", router.submit(*q, **pin))
+                         for q in pool]
+                sent += [(q, "dist", router.submit(*q, kind="dist", k=6,
+                                                   **pin))
+                         for q in pool[:6]]
+                sent += [(q, "witness", router.submit(*q, kind="witness",
+                                                      **pin))
+                         for q in pool[6:10]]
+                sent += [(q, "rpq", router.submit(*q, kind="rpq", **pin))
+                         for q in rqs]
+                results = [(q, kd, f.result(timeout=300))
+                           for q, kd, f in sent[-len(pool) - 18:]]
+                for q, kd, (ans, at) in results:
+                    assert at >= lsn, (kd, at, lsn)
+                    if at not in at_lsn:
+                        at_lsn[at] = tdr_build.build_index(
+                            graphs[at], cfg, layout=idx0.disc, device="cpu")
+                    sent_at = at_lsn[at]
+                    u, v, p = q
+                    if kd == "bool":
+                        want = tdr_query.answer(sent_at, u, v, p,
+                                                device="cpu")
+                    elif kd == "rpq":
+                        want = tdr_query.answer_rpq(sent_at, u, v, p,
+                                                    device="cpu")
+                    else:
+                        want = int(tdr_query.dist_batch(
+                            sent_at, [q], k=6 if kd == "dist" else None,
+                            device="cpu")[0])
+                        if kd == "witness":
+                            ans = -1 if ans is None else len(ans)
+                    assert ans == want, (kd, q, at)
+    finally:
+        writer.close()

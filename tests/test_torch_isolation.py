@@ -17,7 +17,8 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.convert", "repro_torch.deltalog",
            "repro_torch.dfs_baseline",
            "repro_torch.engine", "repro_torch.graph", "repro_torch.lcr",
-           "repro_torch.launch", "repro_torch.launch.serve",
+           "repro_torch.launch", "repro_torch.launch.fleet",
+           "repro_torch.launch.router", "repro_torch.launch.serve",
            "repro_torch.pattern", "repro_torch.rpq", "repro_torch.semiring",
            "repro_torch.snapshot",
            "repro_torch.tdr_build", "repro_torch.tdr_query",
@@ -55,9 +56,13 @@ def test_sources_import_no_jax_or_reference(path):
     assert not FORBIDDEN.search(path.read_text()), path
 
 
-def test_entry_points_refuse_the_cpu_by_default():
+def test_entry_points_refuse_the_cpu_by_default(tmp_path):
+    """The main path and the replicated tier (a follower, the fleet's
+    writer, the fleet itself, which spawns nothing) default to the
+    card; each runs on the CPU when asked to."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
+    from repro_torch.launch import fleet, serve
     g = G.erdos_renyi(20, 2.0, 3, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32))
@@ -65,6 +70,19 @@ def test_entry_points_refuse_the_cpu_by_default():
                                 device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdr_query.answer_batch(idx, [(0, 1, pattern.all_of([0]))])
+    d = str(tmp_path / "store")
+    fleet.init_store(idx, d)
+    for call in (lambda: serve.QueryServer.follow(d),
+                 lambda: fleet.FleetWriter(d),
+                 lambda: fleet.Fleet(d, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    srv = serve.QueryServer.follow(d, device="cpu")
+    assert srv.index.device == torch.device("cpu")
+    writer = fleet.FleetWriter(d, device="cpu")
+    assert writer.graph.n_edges == g.n_edges
+    writer.close()
+    assert fleet.Fleet(d, 2, device="cpu").members() == []
 
 
 @pytest.mark.parametrize("ctor", ["Engine", "make_engine", "compress_blocks"])
