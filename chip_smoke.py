@@ -124,6 +124,28 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    and the fleet's counters, kill-to-ready seconds, publish-to-replicas
    lag per record from the heartbeats, the follower's ``UpdateStats``
    per record, and the card's free memory around ``Fleet.start``.
+11. The vertex-sharded build and answers: three rank processes of this
+   script (``--shard-rank R 3 DIR``; ``OMP_NUM_THREADS`` at their share
+   of the cores) form a process group through a file store under
+   ``build/``: ``nccl`` with one card each when there are three or more,
+   else ``gloo`` with all three on ``cuda:0`` (NCCL refuses two ranks on
+   one device); 32,768 = 3 x 10,923 - 1, so a padding row takes part.
+   Each rank regenerates the smoke graph and the 512 queries from their
+   seeds and checks, by sha256 against phase 1: ``build_index(g,
+   TDRConfig(), mesh=...)`` on the nine index arrays, ``vtx_words``,
+   ``lab_slot`` and ``fixpoint_rounds``; ``distributed_closure`` dense and
+   at ``row_budget=1024`` against the single-device engine closure
+   (phase 1's ``r_vtx``); ``answer_batch(mesh=...)`` with the default
+   backend against phase 1's answers and every ``QueryStats`` counter.
+   Then the paper's §VI-A size, ``erdos_renyi(200000, 4.0, 16, seed=0)``,
+   built sharded against a single-device ``backend="segment"`` build on
+   the card (the parent's), array for array.  Launch counts are set to 0
+   before and read after each rank's build and answers; B1 and B2 must
+   each have run on some rank.  Prints per rank the build, closure and
+   answer seconds, gathers per build with their bytes, the time of one
+   dense round's gather, and the card's free memory.  A rank that fails
+   or runs past the group's timeout fails the phase; the others are
+   killed.
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -176,6 +198,14 @@ FLEET_MIX = (("bool", 768), ("dist", 96), ("rpq", 96), ("witness", 32))
 N_PINNED, N_PINNED_RPQ = 64, 16    # fleet phase: reads at min_lsn = tip
 N_FOLLOWER_DIST = 8            # fleet phase: dist reads of the follower
 N_FLEET_ORACLE = 32            # fleet phase: answers held to the oracles
+N_RANKS = 3                    # sharded phase: ranks (V = 3 x 10,923 - 1)
+SHARD_BUDGET = 1024            # sharded phase: delta-exchange row budget
+N_PAPER = 200_000              # sharded phase: the paper's §VI-A V
+SHARD_TIMEOUT_S = 420          # sharded phase: process group and wait
+SHARD_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
+                "exact_jobs", "exact_qids", "plan_lookups", "plan_misses",
+                "corridor_active", "corridor_total", "compacted_chunks",
+                "full_chunks", "saturated_chunks", "exact_rounds")
 
 
 def fail(msg: str) -> int:
@@ -1159,6 +1189,243 @@ def fleet_phase(torch, g, cfg, idx) -> str | None:
     return None
 
 
+def digest(a) -> str:
+    """sha256 of a tensor's or an array's bytes."""
+    import hashlib
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def index_digests(idx) -> dict:
+    """``digest`` of each index array, ``vtx_words`` and ``lab_slot``."""
+    return {f: digest(getattr(idx, f)) for f in PLANES + (
+        "push", "pop", "g_count", "vtx_words", "lab_slot")}
+
+
+def shard_rank(rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 11 (``chip_smoke.py --shard-rank R N DIR``):
+    joins the group through a file store in ``DIR``, builds, closes and
+    answers sharded, checks each result against the parent's digests, and
+    prints one JSON line of its figures.  Exits non-zero on a mismatch."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import (bitset, distributed, engine, graph, pattern,
+                             tdr_build, tdr_query)
+    from repro_torch.kernels import ops
+
+    spec = json.loads((Path(tmp) / "spec.json").read_text())
+    dev = torch.device(spec["devices"][rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        spec["backend"], store=dist.FileStore(str(Path(tmp) / "store"),
+                                              world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    mesh = distributed.ShardMesh(device=dev)
+    gathers = []
+    gather = engine.all_gather_words
+
+    def spy(x, m):   # counts the exchange; computes nothing
+        gathers.append(x.numel() * x.element_size() * m.size)
+        return gather(x, m)
+
+    engine.all_gather_words = spy   # for the life of this process
+    cfg = tdr_build.TDRConfig()
+    bad = []
+    out = {"rank": rank, "device": str(dev)}
+
+    def sync_time(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    g = graph.erdos_renyi(N_VERTICES, AVG_DEGREE, N_LABELS, seed=0)
+    queries = make_queries(pattern, g.n_vertices, g.n_labels)
+    ops.KERNEL_LAUNCHES.clear()
+    gathers.clear()
+    sidx, out["build_s"] = sync_time(
+        lambda: tdr_build.build_index(g, cfg, mesh=mesh))
+    out["build_launches"] = dict(ops.KERNEL_LAUNCHES)
+    out["build_gathers"] = len(gathers)
+    out["build_gather_bytes"] = sum(gathers)
+    digests = index_digests(sidx)
+    bad += [f"smoke index {f}" for f, h in digests.items()
+            if h != spec["smoke"][f]]
+    if sidx.fixpoint_rounds != spec["smoke_rounds"]:
+        bad.append(f"fixpoint_rounds {sidx.fixpoint_rounds}")
+    for budget in (None, SHARD_BUDGET):
+        r, sec = sync_time(lambda: distributed.distributed_closure(
+            g, sidx.vtx_words, mesh, row_budget=budget))
+        out[f"closure_s[{budget}]"] = sec
+        if digest(r) != spec["closure"]:
+            bad.append(f"distributed_closure at row_budget={budget}")
+        del r
+
+    st = tdr_query.QueryStats()
+    ops.KERNEL_LAUNCHES.clear()
+    ans, out["answer_s"] = sync_time(lambda: tdr_query.answer_batch(
+        sidx, queries, mesh=mesh, exact_chunk=EXACT_CHUNK, stats=st))
+    out["answer_launches"] = dict(ops.KERNEL_LAUNCHES)
+    if ans.tolist() != spec["answers"]:
+        bad.append("answers")
+    got = {f: getattr(st, f) for f in SHARD_FIELDS}
+    bad += [f"QueryStats.{f} {got[f]} != {v}"
+            for f, v in spec["stats"].items() if got[f] != v]
+    out["compacted_chunks"] = st.compacted_chunks
+    del sidx            # and rank 0's class stacks with its engine
+    torch.cuda.empty_cache()
+
+    # one dense round's exchange at the smoke size, alone
+    per = -(-N_VERTICES // world)
+    blk = torch.zeros((per, bitset.n_words(cfg.vtx_bits)),
+                      dtype=torch.int32, device=dev)
+    for _ in range(3):
+        gather(blk, mesh)
+    _, sec = sync_time(lambda: [gather(blk, mesh) for _ in range(20)])
+    out["gather_ms"] = sec / 20 * 1e3
+    out["gather_bytes"] = blk.numel() * 4 * world
+
+    g2 = graph.erdos_renyi(N_PAPER, AVG_DEGREE, N_LABELS, seed=0)
+    gathers.clear()
+    idx2, out["paper_build_s"] = sync_time(
+        lambda: tdr_build.build_index(g2, cfg, mesh=mesh))
+    out["paper_gathers"] = len(gathers)
+    out["paper_gather_bytes"] = sum(gathers)
+    bad += [f"V={N_PAPER} index {f}"
+            for f, h in index_digests(idx2).items()
+            if h != spec["paper"][f]]
+    if idx2.fixpoint_rounds != spec["paper_rounds"]:
+        bad.append(f"V={N_PAPER} fixpoint_rounds "
+                   f"{idx2.fixpoint_rounds}")
+    out["free_gib"] = torch.cuda.mem_get_info(dev)[0] / 2.0 ** 30
+    dist.barrier()
+    out["bad"] = bad
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 1 if bad else 0
+
+
+def rank_devices(torch) -> tuple[str, list[str]]:
+    """Phase 11's backend and each rank's device: ``nccl`` with a card
+    per rank when there are enough cards, else ``gloo`` on ``cuda:0``."""
+    if torch.cuda.device_count() >= N_RANKS:
+        return "nccl", [f"cuda:{r}" for r in range(N_RANKS)]
+    return "gloo", ["cuda:0"] * N_RANKS
+
+
+def rank_command(rank: int, tmp: str) -> list[str]:
+    """The command line of one phase-11 rank: this script again."""
+    return [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+            str(rank), str(N_RANKS), tmp]
+
+
+def shard_phase(torch, cfg, idx, answers, stats) -> str | None:
+    """Phase 11: the smoke graph and the paper's V = 200,000 built
+    vertex-sharded by ``N_RANKS`` rank processes of this script (one card
+    each on nccl with enough cards, else all on ``cuda:0`` on gloo), the
+    closure dense and at a row budget, and the 512 queries answered
+    sharded; every result against phase 1 and a single-device segment
+    build by digest.  Returns a failure message, or None."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import graph, tdr_build
+
+    backend, devices = rank_devices(torch)
+    print(f"shard: {N_RANKS} ranks on {backend}, devices {devices} ("
+          + ("one card each" if backend == "nccl" else "one card shared: "
+             "NCCL refuses two ranks on one device") + ")")
+    spec = {"backend": backend, "devices": devices,
+            "smoke": index_digests(idx),
+            "smoke_rounds": idx.fixpoint_rounds,
+            # the single-device engine closure of the vertex seeds
+            "closure": digest(idx.r_vtx),
+            "answers": answers.tolist(),
+            "stats": {f: getattr(stats, f) for f in SHARD_FIELDS}}
+    g2 = graph.erdos_renyi(N_PAPER, AVG_DEGREE, N_LABELS, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx2 = tdr_build.build_index(g2, cfg, backend="segment")
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    spec["paper"] = index_digests(idx2)
+    spec["paper_rounds"] = idx2.fixpoint_rounds
+    print(f"shard: single-device segment build at V={N_PAPER} "
+          f"(E={g2.n_edges}): {single_s:.3f} s, fixpoint_rounds="
+          f"{idx2.fixpoint_rounds}")
+    del idx2, g2
+    for eng in idx._engines.values():
+        eng._label_adj.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2.0 ** 30
+    free0 = torch.cuda.mem_get_info()[0] / gib
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="shard_", dir=root)
+    procs = []
+    try:
+        (Path(tmp) / "spec.json").write_text(json.dumps(spec))
+        env = dict(os.environ, OMP_NUM_THREADS=str(
+            max(1, (os.cpu_count() or 1) // (N_RANKS + 1))))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(rank_command(r, tmp), env=env,
+                                  stdout=subprocess.PIPE, text=True)
+                 for r in range(N_RANKS)]
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        while True:   # until every rank exits, or one fails
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            if time.monotonic() > deadline:
+                return f"a rank ran past {SHARD_TIMEOUT_S} s"
+            time.sleep(0.2)
+        wall = time.perf_counter() - t0
+        failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+        if failed:   # the ranks still running wait on it: killed below
+            r = failed[0]
+            lines = procs[r].stdout.read().strip().splitlines()
+            why = json.loads(lines[-1])["bad"] if lines else "no report"
+            return f"rank {r} exited {codes[r]}: {why}"
+        reports = [json.loads(p.stdout.read().strip().splitlines()[-1])
+                   for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rep in reports:
+        print(f"shard rank {rep['rank']} ({rep['device']}): build "
+              f"{rep['build_s']:.3f} s ({rep['build_gathers']} gathers, "
+              f"{rep['build_gather_bytes'] / 2**20:.1f} MiB), closure dense "
+              f"{rep['closure_s[None]']:.3f} s / row_budget={SHARD_BUDGET} "
+              f"{rep[f'closure_s[{SHARD_BUDGET}]']:.3f} s, answer_batch "
+              f"{rep['answer_s']:.3f} s ({rep['compacted_chunks']} compacted "
+              f"chunks; launches {rep['answer_launches']}; build launches "
+              f"{rep['build_launches']}); V={N_PAPER} build "
+              f"{rep['paper_build_s']:.3f} s ({rep['paper_gathers']} "
+              f"gathers, {rep['paper_gather_bytes'] / 2**20:.1f} MiB); one "
+              f"[{-(-N_VERTICES // N_RANKS)}, 8] gather "
+              f"{rep['gather_bytes']} bytes {rep['gather_ms']:.4f} ms; card "
+              f"memory free {rep['free_gib']:.2f} GiB")
+    print(f"shard: {N_RANKS} ranks in {wall:.3f} s wall (spawn to exit); "
+          f"card memory free {free0:.2f} GiB before the spawn; every rank's "
+          f"index, closure (dense and row_budget={SHARD_BUDGET}), answers "
+          f"and QueryStats equal phase 1's, and its V={N_PAPER} index the "
+          f"single-device segment build's")
+    for kname in ("bitset_matmul", "way_filter"):
+        if sum(rep["answer_launches"].get(kname, 0) for rep in reports) <= 0:
+            return f"{kname} was not launched by a rank's sharded answers"
+    return None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1712,6 +1979,11 @@ def main() -> int:
     if msg:
         return fail(msg)
 
+    # ---- 11. the vertex-sharded build and answers ---------------------
+    msg = shard_phase(torch, cfg, idx, answers, stats)
+    if msg:
+        return fail(msg)
+
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1720,4 +1992,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

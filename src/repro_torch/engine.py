@@ -29,6 +29,10 @@ are the same.
 ``BOOLEAN``): lane carriers (DIST16/DIST8/COUNT, ``repro_torch.semiring``)
 run ``lane_matmul`` on ``matmul`` and a gather plus a lane scatter
 reduction on ``segment``, always through the dense cores.
+
+The mesh-aware primitives (``all_gather_words``, ``propagate_sharded``,
+``closure_sharded``, ``closure_sharded_delta``) run the same rounds
+vertex-sharded, one process per shard (``repro_torch.distributed``).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import bitset
 from .bitset import resolve_device  # noqa: F401  (re-exported)
@@ -173,6 +178,135 @@ def _closure_blocksparse(base: torch.Tensor, comp: BlockCompressed,
         r = r | nxt
         new = nxt
         changed = bool((nxt != 0).any())
+        rounds += 1
+    return r, rounds
+
+
+# ------------------------------------------------- mesh-aware primitives
+# These run on every rank of a ``distributed.ShardMesh`` at once (SPMD: one
+# process per shard).  The vertex dimension is split into contiguous blocks
+# of ``per`` rows, rank s owning block s, and the only traffic between
+# ranks is the all-gather of packed int32 words plus one int32 flag per
+# fixpoint round.  Every rank calls every collective in the same order.
+
+
+def _on_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` made contiguous; raises unless it lives on the mesh's device
+    (the collectives never move a tensor between devices)."""
+    if x.device.type != mesh.device.type or (
+            x.device.index is not None and mesh.device.index is not None
+            and x.device.index != mesh.device.index):
+        raise ValueError(f"a tensor on {x.device} cannot cross a mesh on "
+                         f"{mesh.device}")
+    return x.contiguous()
+
+
+def all_gather_words(x_local: torch.Tensor, mesh) -> torch.Tensor:
+    """Gather every rank's packed int32 block ``[per, W]`` into the full
+    table ``[size·per, W]``, rank-major (rank s's rows at ``s·per``)."""
+    x = _on_mesh(x_local, mesh)
+    out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=mesh.group)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Elementwise max of an int32 tensor over the ranks (in place; also
+    returned).  An OR of 0/1 flags and answers, a max of round counts."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"all_reduce_max takes int32, got {x.dtype}")
+    _on_mesh(x, mesh)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group)
+    return x
+
+
+def propagate_sharded(x_local: torch.Tensor, gather_idx: torch.Tensor,
+                      scatter_idx: torch.Tensor, valid_words: torch.Tensor,
+                      mesh, *, num_segments: int,
+                      chunk_words: int) -> torch.Tensor:
+    """One sharded round ``out[a] = OR_{(a,b)} x[b]`` over packed words.
+
+    ``gather_idx`` holds the *global* remote endpoint of each edge this
+    rank owns (it indexes the gathered table), ``scatter_idx`` the owned
+    endpoint as a local row, and ``valid_words`` ``[e_max, 1]`` all-ones
+    or all-zeros int32 words that zero the padding slots."""
+    full = all_gather_words(x_local, mesh)
+    vals = full[gather_idx] & valid_words
+    return bitset.segment_or_words(vals, scatter_idx,
+                                   num_segments=num_segments,
+                                   chunk_words=chunk_words)
+
+
+def _any_across(mask: torch.Tensor, mesh) -> bool:
+    """Whether ``mask`` holds a True on any rank (one int32 all-reduce)."""
+    flag = mask.any().to(torch.int32).reshape(1)
+    return bool(all_reduce_max(flag, mesh).item())
+
+
+def closure_sharded(base: torch.Tensor, step, mesh, *, max_iters: int):
+    """lfp(R = base ∨ step(R)) over this rank's rows; returns (R, rounds).
+
+    The changed flag is the round's own new bits (``upd & ~r``), reduced
+    over the ranks every round, so every rank stops at the same round.
+    Rounds count as ``_fixpoint`` counts them: the round that changes
+    nothing is counted."""
+    r, rounds, changed = base, 0, True
+    while changed and rounds < max_iters:
+        new = step(r) & ~r
+        changed = _any_across(new != 0, mesh)
+        r = r | new
+        rounds += 1
+    return r, rounds
+
+
+def closure_sharded_delta(base: torch.Tensor, gather_idx: torch.Tensor,
+                          scatter_idx: torch.Tensor,
+                          valid_words: torch.Tensor, mesh, *, per: int,
+                          v_pad: int, chunk_words: int, row_budget: int,
+                          max_iters: int):
+    """Delta-row exchange fixpoint: ship changed rows, not the table.
+
+    Each rank keeps a pending bitmap of its rows that carry bits the other
+    ranks have not seen, and per round ships exactly ``budget`` slots of
+    ``(global id, packed row)`` as one int32 ``[budget, 1 + W]`` block:
+    its first ``budget`` pending rows in ascending order, the rest padded
+    with the sentinel id ``v_pad`` and a zero row.  Receivers scatter the
+    shipped rows into a zeroed table and run the ordinary local OR
+    reduction.  A row left over when the budget binds ships on a later
+    round, and a row that changes after shipping becomes pending again,
+    so the result equals ``closure_sharded``'s for any budget >= 1 (the
+    OR fixpoint is unique); a binding budget only adds rounds.  Stops
+    when no rank has a pending row.  Returns ``(R, rounds)``."""
+    dev = base.device
+    budget = min(row_budget, per)
+    w = base.shape[1]
+    row0 = mesh.rank * per
+    lane = torch.arange(per, dtype=torch.int32, device=dev)
+    zero_row = base.new_zeros((1, w))
+    r, rounds, changed = base, 0, True
+    pend = (base != 0).any(dim=1)
+    while changed and rounds < max_iters:
+        ship = torch.where(pend, lane, per).sort().values[:budget].long()
+        live = ship < per
+        payload = torch.cat([r, zero_row])[ship]        # sentinel: zero row
+        gid = torch.where(live, ship + row0, v_pad).to(torch.int32)
+        slots = all_gather_words(torch.cat([gid[:, None], payload], dim=1),
+                                 mesh)                   # [S·budget, 1 + W]
+        # real ids are distinct within a round (a row ships only from its
+        # owner); every sentinel slot writes the same zero row
+        tbl = torch.zeros((v_pad + 1, w), dtype=r.dtype, device=dev)
+        tbl[slots[:, 0].long()] = slots[:, 1:]
+        upd = bitset.segment_or_words(
+            tbl[:v_pad][gather_idx] & valid_words, scatter_idx,
+            num_segments=per, chunk_words=chunk_words)
+        new = upd & ~r
+        shipped = torch.zeros(per + 1, dtype=torch.bool, device=dev)
+        shipped[ship] = True
+        pend = (pend & ~shipped[:per]) | (new != 0).any(dim=1)
+        changed = _any_across(pend, mesh)
+        r = r | new
         rounds += 1
     return r, rounds
 

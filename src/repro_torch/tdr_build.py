@@ -343,7 +343,7 @@ def build_index(graph: Graph, cfg: TDRConfig = TDRConfig(), *,
                 backend: str | None = None,
                 engine_config: "engine_mod.EngineConfig | None" = None,
                 layout: np.ndarray | None = None,
-                device="cuda") -> TDRIndex:
+                mesh=None, device="cuda") -> TDRIndex:
     """Construct the full TDR index for every vertex of ``graph``.
 
     ``device`` defaults to the card and raises when there is none; pass
@@ -353,7 +353,18 @@ def build_index(graph: Graph, cfg: TDRConfig = TDRConfig(), *,
     normally ``TDRIndex.disc`` of an earlier build over the same vertex
     set) instead of deriving it from this graph's DFS forest; push/pop
     intervals are always recomputed from ``graph``.
+
+    ``mesh`` (a ``distributed.ShardMesh``) routes to the vertex-sharded
+    build, ``distributed.build_index``: a collective call that builds on
+    the mesh's device, with the same planes and the exchange in packed
+    int32 words.  It derives its own layout, so ``layout`` is refused.
     """
+    if mesh is not None:
+        if layout is not None:
+            raise ValueError("layout pinning is single-device only; the "
+                             "distributed build derives its own")
+        from . import distributed  # deferred: it imports this module
+        return distributed.build_index(graph, cfg, mesh=mesh)
     dev = engine_mod.resolve_device(device)
     v_n = graph.n_vertices
     push, pop, disc = dfs_intervals(graph)

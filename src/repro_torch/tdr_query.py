@@ -339,6 +339,21 @@ def _filter_cascade(u, v, req_w, forb_w, null_w, vtx_packed, h_vtx, h_lab,
                        torch.where(any_way, UNKNOWN, FALSE), verdict)
 
 
+def _cascade_rows(index: TDRIndex, plan: QueryPlan, rows: slice):
+    """``_filter_cascade`` over the plan's jobs ``rows`` on the index's
+    device -> verdict int [len(rows)] (a tensor on that device)."""
+    dev = index.device
+    sat_out_d, sat_in_d = index.summary_flags_dev()
+    return _filter_cascade(
+        _to_long(plan.u[rows], dev), _to_long(plan.v[rows], dev),
+        bitset.np_to_words(plan.req_w[rows], dev),
+        bitset.np_to_words(plan.forb_w[rows], dev),
+        bitset.np_to_words(_null_words(index.cfg), dev),
+        index.vtx_packed, index.h_vtx, index.h_lab, index.v_vtx,
+        index.v_lab, index.n_out, index.n_in, sat_out_d, sat_in_d,
+        index.push, index.pop)
+
+
 # ---------------------------------------------------------------- phase 2
 def _state_has_masks(n_states: int, max_m: int) -> list:
     """HAS[i] = packed mask of subset-states whose bit i is set."""
@@ -803,20 +818,21 @@ def answer_batch(index: TDRIndex,
                  backend: str | None = None,
                  exact_mode: str = "auto",
                  engine_config: "engine_mod.EngineConfig | None" = None,
-                 device="cuda") -> np.ndarray:
+                 mesh=None, device="cuda") -> np.ndarray:
     """Answer a batch of PCR queries.  Returns bool [n_queries].
 
     ``device`` defaults to the card and must be where ``index`` lives
-    (pass ``device="cpu"`` for an index built on the CPU).
-    ``filters_only`` stops after the phase-1 cascade (see
-    ``answer_plan``)."""
+    (pass ``device="cpu"`` for an index built on the CPU); under ``mesh``
+    (a ``distributed.ShardMesh``; the call is then collective) the mesh's
+    device is the device.  ``filters_only`` stops after the phase-1
+    cascade (see ``answer_plan``)."""
     t0 = time.perf_counter()
-    _check_device(index, device)
+    _check_device(index, device if mesh is None else mesh.device)
     plan = compile_queries(index, queries, max_m=max_m, stats=stats)
     return answer_plan(index, plan, exact_chunk=exact_chunk, stats=stats,
                        filters_only=filters_only, backend=backend,
                        exact_mode=exact_mode, engine_config=engine_config,
-                       _t0=t0)
+                       mesh=mesh, _t0=t0)
 
 
 def answer_plan(index: TDRIndex, plan: QueryPlan,
@@ -829,6 +845,7 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                 special_labels: Sequence[int] | None = None,
                 pin_m: int | None = None,
                 pad_lo: int = 16,
+                mesh=None,
                 _t0: float | None = None) -> np.ndarray:
     """Answer a compiled ``QueryPlan`` on the index's device.  Returns
     bool [plan.n_queries].
@@ -847,7 +864,13 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     ``special_labels`` the label-class set, unioned with the labels the
     batch needs, so the matmul backend's class stacks come from the
     engine's LRU.  A pin can widen a set but never narrow it, so answers
-    never change."""
+    never change.
+
+    ``mesh`` (a ``distributed.ShardMesh`` whose device holds the index)
+    makes the call collective: every rank passes the same plan, runs the
+    cascade on its slice of the job axis (padded to a multiple of the
+    mesh size) and its share of the phase-2 chunks, and returns the whole
+    answers, with ``stats`` equal to a single-device run's."""
     if plan.max_m > 5:
         raise ValueError(
             f"max_m={plan.max_m}: the packed executor holds subset states "
@@ -862,6 +885,8 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             "batches through answer_mixed (or dist_batch / witness / "
             "count_routes directly)")
     t0 = _t0 if _t0 is not None else time.perf_counter()
+    if mesh is not None:
+        _check_device(index, mesh.device)
     eng = index.engine(backend, engine_config)
     dev = index.device
     stats = stats if stats is not None else QueryStats()
@@ -871,16 +896,17 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     if plan.n_jobs == 0:
         return answers
 
+    # pad the job axis onto the bucket grid (and, under a mesh, further to
+    # a multiple of its size)
     plan_p = plan.pad_to(graph_mod.pad_bucket(plan.n_jobs, lo=pad_lo))
+    if mesh is not None:
+        plan_p = plan_p.pad_to(-(-plan_p.n_jobs // mesh.size) * mesh.size)
+        from . import distributed  # deferred: it imports this module
+        verdict = distributed.filter_cascade_sharded(index, plan_p, mesh)
+    else:
+        verdict = _cascade_rows(index, plan_p,
+                                slice(None)).cpu().numpy()
     pd_u, pd_v = _to_long(plan_p.u, dev), _to_long(plan_p.v, dev)
-    sat_out_d, sat_in_d = index.summary_flags_dev()
-    verdict = _filter_cascade(
-        pd_u, pd_v, bitset.np_to_words(plan_p.req_w, dev),
-        bitset.np_to_words(plan_p.forb_w, dev),
-        bitset.np_to_words(_null_words(index.cfg), dev),
-        index.vtx_packed, index.h_vtx, index.h_lab, index.v_vtx,
-        index.v_lab, index.n_out, index.n_in, sat_out_d, sat_in_d,
-        index.push, index.pop).cpu().numpy()
 
     real = plan_p.qid >= 0
     stats.filter_false += int(((verdict == FALSE) & real).sum())
@@ -933,21 +959,31 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             for c0, u in zip(probe_starts, unions):
                 compact_flags[c0 // exact_chunk] = (
                     graph_mod.pad_bucket(int(u), lo=32) < v_n)
+    # under a mesh each rank runs the chunks it owns; membership is
+    # fetched only for the compacted chunks this process runs
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    owners = _chunk_owners(compact_flags, size)
+    runs = [o == rank for o in owners]
     member = None
     mem_off = {}
-    if any(compact_flags):
+    if any(f and r for f, r in zip(compact_flags, runs)):
         cjobs = np.concatenate(
             [pending[c0:c0 + exact_chunk]
-             for c0, flag in zip(starts, compact_flags) if flag])
+             for c0, flag, run in zip(starts, compact_flags, runs)
+             if flag and run])
         member = ex.corridor_members(pd, cjobs)
         off = 0
-        for c0, flag in zip(starts, compact_flags):
-            if flag:
+        for c0, flag, run in zip(starts, compact_flags, runs):
+            if flag and run:
                 n = len(pending[c0:c0 + exact_chunk])
                 mem_off[c0] = (off, off + n)
                 off += n
 
-    for c0, flag in zip(starts, compact_flags):
+    # per chunk: rounds, |V'|, |V|, compacted (zeros for another rank's)
+    parts = np.zeros((len(starts), 4), dtype=np.int32)
+    for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
+        if not runs[i]:
+            continue
         jobs = pending[c0:c0 + exact_chunk]
         real_n = len(jobs)
         rows = member[slice(*mem_off[c0])] if flag else None
@@ -963,15 +999,43 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
         reached = np.asarray(res.reached.cpu() if torch.is_tensor(
             res.reached) else res.reached)[:real_n]
         np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]], True)
-        stats._round_parts.append(res.rounds)
-        stats.corridor_active += res.n_active
-        stats.corridor_total += res.v_total
-        if res.compacted:
+        parts[i] = (res.rounds, res.n_active, res.v_total, res.compacted)
+    if mesh is not None:
+        answers, parts = _combine_ranks(answers, parts, owners, mesh)
+    for rounds, n_active, v_total, compacted in parts.tolist():
+        stats._round_parts.append(rounds)
+        stats.corridor_active += n_active
+        stats.corridor_total += v_total
+        if compacted:
             stats.compacted_chunks += 1
         else:
             stats.full_chunks += 1
     stats.phase2_s += time.perf_counter() - t1
     return answers
+
+
+def _chunk_owners(compact_flags, size: int) -> list[int]:
+    """The rank that runs each phase-2 chunk: the c-th compacted chunk on
+    rank ``c % size``, every full-graph chunk on rank 0 (the lead rank,
+    which holds the V-sized class stacks)."""
+    owners, c = [], 0
+    for flag in compact_flags:
+        owners.append(c % size if flag else 0)
+        c += bool(flag)
+    return owners
+
+
+def _combine_ranks(answers: np.ndarray, parts: np.ndarray, owners: list,
+                   mesh) -> tuple[np.ndarray, np.ndarray]:
+    """OR the ranks' answers (one int32 all-reduce) and take each chunk's
+    counters from the rank that ran it (one gather), in chunk order."""
+    dev = mesh.device
+    ans = torch.from_numpy(answers.astype(np.int32)).to(dev)
+    answers = engine_mod.all_reduce_max(ans, mesh).cpu().numpy() != 0
+    table = engine_mod.all_gather_words(torch.from_numpy(parts).to(dev),
+                                        mesh).cpu().numpy()
+    table = table.reshape(mesh.size, len(owners), parts.shape[1])
+    return answers, table[owners, np.arange(len(owners))]
 
 
 def answer(index: TDRIndex, u: int, v: int, p: pat.Pattern, **kw) -> bool:

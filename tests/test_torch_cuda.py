@@ -892,3 +892,65 @@ def test_fleet_on_card_matches_direct_cpu_calls(cuda, tmp_path,
                     assert ans == want, (kd, q, at)
     finally:
         writer.close()
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A one-rank gloo group on the card, for the test's duration."""
+    import torch.distributed as dist
+    from repro_torch import distributed
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield distributed.ShardMesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [None, 1, 64])
+def test_sharded_build_on_card_matches_single(card_mesh, budget):
+    """In process, one gloo rank on the card: the sharded build equals the
+    single-device card build, the closure at every row budget equals
+    ``r_vtx``, and sharded answers equal the meshless ones with B1 and B2
+    launched."""
+    from repro_torch import distributed
+    g = G.random_graph("pa", 257, 2.5, 5, seed=2)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    single = tdr_build.build_index(g, cfg)
+    got = tdr_build.build_index(g, cfg, mesh=card_mesh)
+    assert got.device == single.device
+    for f in PLANES + ("push", "pop", "g_count"):
+        assert torch.equal(getattr(got, f), getattr(single, f)), f
+    assert got.fixpoint_rounds == single.fixpoint_rounds
+    r = distributed.distributed_closure(g, single.vtx_words, card_mesh,
+                                        row_budget=budget)
+    assert torch.equal(r, single.r_vtx)
+    qs = _kind_queries(np.random.default_rng(3), 257, 5, 40)
+    want = tdr_query.answer_batch(single, qs, exact_chunk=4)
+    n1, n2 = (ops.KERNEL_LAUNCHES[k] for k in ("bitset_matmul",
+                                               "way_filter"))
+    ans = tdr_query.answer_batch(got, qs, exact_chunk=4, mesh=card_mesh)
+    assert ans.tolist() == want.tolist()
+    assert ops.KERNEL_LAUNCHES["bitset_matmul"] > n1
+    assert ops.KERNEL_LAUNCHES["way_filter"] > n2
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_card(cuda):
+    """Two gloo ranks on cuda:0 (``tests/torch_multidevice_check.py
+    --card 2``): the sharded build equals the single-device card build and
+    ``answer_batch(mesh=)`` launches B1 and B2."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(here), "src") + \
+        os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, os.path.join(here, "torch_multidevice_check.py"),
+         "--card", "2"], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    assert "torch multidevice check OK" in r.stdout

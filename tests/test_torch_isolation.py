@@ -15,7 +15,7 @@ from repro_torch import (compressed, engine, graph as G, pattern, snapshot,
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.convert", "repro_torch.deltalog",
-           "repro_torch.dfs_baseline",
+           "repro_torch.dfs_baseline", "repro_torch.distributed",
            "repro_torch.engine", "repro_torch.graph", "repro_torch.lcr",
            "repro_torch.launch", "repro_torch.launch.fleet",
            "repro_torch.launch.router", "repro_torch.launch.serve",
@@ -185,3 +185,26 @@ def test_rpq_and_serving_entry_points_refuse_the_cpu_by_default(
     rec = serve.QueryServer.recover(str(tmp_path / "p"), device="cpu")
     assert rec.index.device == torch.device("cpu")
     rec.close_persistence()
+
+
+@pytest.mark.parametrize("entry", ["ShardMesh", "build_index(mesh=)"])
+def test_sharded_entry_points_refuse_the_cpu_by_default(entry):
+    """A ``ShardMesh`` defaults to the card, so a sharded build does too;
+    on a CPU gloo group it runs on the CPU when asked to."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import torch.distributed as dist
+    from repro_torch import distributed
+    g = G.erdos_renyi(20, 2.0, 3, seed=0)
+    cfg = tdr_build.TDRConfig(vtx_bits=32)
+    call = {"ShardMesh": lambda **kw: distributed.ShardMesh(**kw),
+            "build_index(mesh=)": lambda **kw: tdr_build.build_index(
+                g, cfg, mesh=distributed.ShardMesh(**kw))}[entry]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()

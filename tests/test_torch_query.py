@@ -148,6 +148,24 @@ def test_answer_lcr_batch_matches_reference(seed):
         assert got.tolist() == want, backend
 
 
+def test_p2h_lite_matches_oracle():
+    """The full-index baseline equals the LCR oracle and the JAX
+    package's ``P2HLite`` (the same minimal label sets) on one graph."""
+    rg = RG.erdos_renyi(25, 1.5, 3, seed=4)
+    g = G.erdos_renyi(25, 1.5, 3, seed=4)
+    full = lcr.P2HLite.build(g)
+    rfull = RL.P2HLite.build(rg)
+    assert full.out == rfull.out
+    assert full.size_bytes() == rfull.size_bytes()
+    rng = np.random.default_rng(2)
+    for _ in range(30):
+        u, v = int(rng.integers(25)), int(rng.integers(25))
+        allowed = rng.choice(3, size=2, replace=False).tolist()
+        want = RD.answer_lcr(rg, u, v, set(allowed))
+        assert full.query(u, v, allowed) == want
+        assert rfull.query(u, v, allowed) == want
+
+
 @pytest.mark.parametrize("over", ["adjacency", "label_classes"])
 def test_dense_cap_on_the_cpu_warns_and_keeps_answers(over):
     """On the CPU a dense operand over ``max_dense_bytes`` warns and its
