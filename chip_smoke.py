@@ -146,6 +146,25 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    dense round's gather, and the card's free memory.  A rank that fails
    or runs past the group's timeout fails the phase; the others are
    killed.
+12. The LM substrate (``repro_torch.configs/models/train/data/checkpoint``
+   and ``launch/train.py``), which reaches no hand-written kernel (the
+   reference's LM path reaches no ``pallas_call``).  (a) Each of the 8
+   registry archs, reduced, float32 with TF32 off: forward, one train
+   step and prefill plus 3 decode steps on the card against the port on
+   the CPU from the same weights and batch (logits within 1e-4 + 1e-4 of
+   their size, train-step params within a tenth of lr), and decode
+   against the card's forward (5e-3).  (b) phi3-mini-3.8b, the train
+   CLI's default arch, at its published widths in bf16 (d_model 3072, 32
+   heads, d_ff 8192, vocab 32,064), depth cut to 4 of 32 layers, seq_len
+   4,096 (train_4k) and batch 2 (train_4k's is 256), remat on: 3 steps of
+   ``train_loop`` with its checkpoint under ``build/``, then 2 timed
+   steps (loss finite, every param changed); prefill of 4,080 tokens and
+   16 ``decode_step``s, each logit within 0.125 (4 bf16 ulps at the
+   largest logits) of ``forward``'s.  Prints ms per step, tokens/s,
+   6·N·D FLOP/s as a share of the card's dense bf16 peak (989 TFLOP/s),
+   peak memory, checkpoint save seconds and decode ms per token.  (c) A
+   reduced ``train_loop`` with ``fail_at_step`` ends with the params of
+   an uninterrupted run within 1e-6 (deterministic algorithms on).
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -202,6 +221,15 @@ N_RANKS = 3                    # sharded phase: ranks (V = 3 x 10,923 - 1)
 SHARD_BUDGET = 1024            # sharded phase: delta-exchange row budget
 N_PAPER = 200_000              # sharded phase: the paper's §VI-A V
 SHARD_TIMEOUT_S = 420          # sharded phase: process group and wait
+LM_ARCH = "phi3-mini-3.8b"      # LM phase: the train CLI's default arch
+LM_LAYERS = 4                  # of its 32: the cut depth
+LM_SEQ, LM_BATCH = 4096, 2     # train_4k's seq_len; its batch is 256
+LM_STEPS, LM_TIMED_STEPS = 3, 2
+LM_PREFILL, LM_DECODE = 4080, 16
+LM_PREFILL_CHUNK = 1020        # a query chunk that divides the prompt
+LM_FP32_TOL = 1e-4             # reduced archs, card against CPU (+ rel.)
+LM_BF16_TOL = 0.125            # decode against forward: 4 bf16 ulps at 4-8
+BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16, data sheet
 SHARD_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
                 "exact_jobs", "exact_qids", "plan_lookups", "plan_misses",
                 "corridor_active", "corridor_total", "compacted_chunks",
@@ -1426,6 +1454,222 @@ def shard_phase(torch, cfg, idx, answers, stats) -> str | None:
     return None
 
 
+def lm_phase(torch) -> str | None:
+    """Phase 12: the LM substrate, reduced archs and phi3-mini-3.8b at
+    full width (module docstring, item 12)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import bitset, configs, pytree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = bitset.resolve_device("cuda")
+
+    def err(a, b):
+        """max |a - b| (on the host)."""
+        return float((a.detach().float().cpu()
+                      - b.detach().float().cpu()).abs().max())
+
+    def close(a, b):
+        return torch.allclose(a.detach().float().cpu(),
+                              b.detach().float().cpu(), rtol=LM_FP32_TOL,
+                              atol=LM_FP32_TOL)
+
+    # (a) every arch, reduced, float32: the card against the CPU
+    s0, s = 37, 40
+    for arch in configs.list_archs():
+        cfg = configs.get(arch).reduced()
+        params = init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s)))
+        media = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_media_tokens, cfg.d_model)).astype(np.float32))
+            if cfg.n_media_tokens else None)
+        out = {}
+        for name, d in (("cpu", "cpu"), ("card", card)):
+            p = pytree.tree_map(lambda t: t.to(d), params)
+            batch = {"tokens": toks.to(d)}
+            if media is not None:
+                batch["media"] = media.to(d)
+            logits, aux, _ = forward(cfg, p, batch["tokens"],
+                                     batch.get("media"))
+            state, m = make_train_step(cfg, AdamWConfig(lr=1e-3))(
+                init_train_state(cfg, p, device=d), batch)
+            last, cache = prefill(cfg, p, batch["tokens"][:, :s0],
+                                  batch.get("media"), max_len=s)
+            dec = [last]
+            for t in range(s0, s):
+                lg, cache = decode_step(cfg, p, cache, batch["tokens"][:, t])
+                dec.append(lg)
+            out[name] = (logits, aux, m["loss"], state["params"], dec)
+        (lh, ah, los_h, ph, dh), (ld, ad, los_d, pd, dd) = (out["cpu"],
+                                                           out["card"])
+        e_step = max(err(a, b) for a, b in zip(pytree.leaves(pd),
+                                               pytree.leaves(ph)))
+        e_df = max(err(dd[i], ld[:, s0 - 1 + i]) for i in range(len(dd)))
+        e_loss = abs(float(los_d) - float(los_h))
+        ok = (close(ld, lh) and all(close(a, b) for a, b in zip(dd, dh))
+              and e_step <= 1e-4 and e_df <= 5e-3 and e_loss <= 1e-4
+              and bool(torch.isfinite(ld).all()))
+        print(f"LM (a) {arch} reduced fp32, card vs CPU: logits "
+              f"{err(ld, lh):.2e}, aux {abs(float(ad) - float(ah)):.2e}, "
+              f"loss {e_loss:.2e}, train-step params {e_step:.2e}, decode "
+              f"{max(err(a, b) for a, b in zip(dd, dh)):.2e}; card decode "
+              f"vs forward {e_df:.2e}")
+        if not ok:
+            return f"LM phase (a): {arch} on the card disagrees with the CPU"
+
+    # (b) phi3-mini-3.8b at its published widths, depth cut
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=LM_LAYERS)
+    n_params = cfg.n_params()
+    print(f"LM (b) cuts: {LM_ARCH} depth {LM_LAYERS} of 32 layers, seq_len "
+          f"{LM_SEQ} (train_4k), batch {LM_BATCH} (train_4k's is 256); "
+          f"widths as published (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {cfg.dtype}, random "
+          f"weights from seed 0, remat on; N = {n_params:,} params")
+    dc = DataConfig(task="lm", vocab=cfg.vocab, seq_len=LM_SEQ,
+                    global_batch=LM_BATCH)
+    opt = AdamWConfig()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_", dir=root)
+    try:
+        ck = Checkpointer(tmp, keep=1)
+        saves = []
+        save = ck.save
+
+        def timed_save(step, st):
+            t = time.perf_counter()
+            save(step, st)
+            saves.append(time.perf_counter() - t)
+        ck.save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_cli.train_loop(cfg, dc, opt, LM_STEPS, ck,
+                                     log_every=1, remat=True)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        with open(Path(tmp) / f"step_{LM_STEPS}" / "manifest.json") as f:
+            n_saved = len(json.load(f)["arrays"])
+        init = init_params(cfg, 0)
+        unchanged = [n for (n, a), b in zip(
+            pytree.leaves_with_paths(init), pytree.leaves(state["params"]))
+            if torch.equal(a, b)]
+        del init
+        step_fn = make_train_step(cfg, opt, remat=True)
+        batch = batch_for_step(dc, LM_STEPS)
+        times, losses = [], []
+        for _ in range(LM_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times))
+        tokens = LM_BATCH * LM_SEQ
+        flops = 6 * n_params * tokens / step_s
+        print(f"LM (b) train_loop {LM_STEPS} steps + checkpoint: "
+              f"{loop_s:.3f} s (save {saves[0]:.3f} s, {n_saved} arrays); "
+              f"timed steps {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+              f"ms, loss {', '.join(f'{x:.4f}' for x in losses)}")
+        print(f"LM (b) {step_s * 1e3:.1f} ms per step, "
+              f"{tokens / step_s:.1f} tokens/s, 6·N·D = "
+              f"{flops / 1e12:.1f} TFLOP/s = {100 * flops / BF16_PEAK_FLOPS:.1f}"
+              f"% of the bf16 dense peak; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        if unchanged or not all(np.isfinite(losses)):
+            return (f"LM phase (b): losses {losses}, params unchanged by "
+                    f"training: {unchanged}")
+        held = []
+        wall, busy, top, n_k = profile(
+            torch, lambda: held.append(step_fn(state, batch)))
+        print(f"LM (b) profile of one train step: wall {wall * 1e3:.1f} ms, "
+              f"device busy {busy * 1e3:.1f} ms "
+              f"({100 * (1 - busy / wall):.1f}% idle), {n_k} device "
+              f"kernels; top device time: "
+              + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+        params = held[0][0]["params"]
+        del state, m, held
+
+        toks = batch_for_step(dc, LM_STEPS + 1)["tokens"]
+        with torch.no_grad():
+            full, _, _ = forward(cfg, params, toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill(cfg, params, toks[:, :LM_PREFILL],
+                              max_len=LM_SEQ, q_chunk=LM_PREFILL_CHUNK)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        errs = [err(last, full[:, LM_PREFILL - 1])]
+        dts = []
+        for t in range(LM_PREFILL, LM_PREFILL + LM_DECODE - 1):
+            t0 = time.perf_counter()
+            lg, cache = decode_step(cfg, params, cache, toks[:, t])
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+            errs.append(err(lg, full[:, t]))
+        held = []
+        t = LM_PREFILL + LM_DECODE - 1          # the last step, profiled
+        wall, busy, top, n_k = profile(torch, lambda: held.append(
+            decode_step(cfg, params, cache, toks[:, t])))
+        errs.append(err(held[0][0], full[:, t]))
+        decode_profile = (
+              f"LM (b) profile of one decode step: wall {wall * 1e3:.2f} "
+              f"ms, device busy {busy * 1e3:.2f} ms "
+              f"({100 * (1 - busy / wall):.1f}% idle), {n_k} device "
+              f"kernels; top device time: "
+              + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in top))
+        print(f"LM (b) prefill {LM_PREFILL} tokens x {LM_BATCH}: "
+              f"{prefill_s * 1e3:.1f} ms; decode {LM_DECODE} steps (the "
+              f"last profiled, untimed): median "
+              f"{np.median(dts) * 1e3:.2f} ms per token (batch {LM_BATCH}), "
+              f"first {dts[0] * 1e3:.2f} ms; |decode - forward| max "
+              f"{max(errs):.4f} (bound {LM_BF16_TOL}), mean over steps "
+              f"{np.mean(errs):.4f}; logits |max| "
+              f"{float(full.abs().max()):.3f}")
+        print(decode_profile)
+        if max(errs) > LM_BF16_TOL or not bool(torch.isfinite(full).all()):
+            return f"LM phase (b): decode drifts from forward by {errs}"
+        del params, cache, full, held
+
+        # (c) restart: an injected failure ends on the uninterrupted params
+        cfg = configs.get(LM_ARCH).reduced()
+        dc = DataConfig(task="copy", vocab=cfg.vocab, seq_len=32,
+                        global_batch=8)
+        opt = AdamWConfig(lr=1e-3)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", ".*deterministic.*")
+                kw = dict(ckpt_every=4, log_every=100)
+                ref = train_cli.train_loop(cfg, dc, opt, 8, Checkpointer(
+                    str(Path(tmp) / "ref")), **kw)
+                got = train_cli.train_loop(cfg, dc, opt, 8, Checkpointer(
+                    str(Path(tmp) / "restart"), async_save=True),
+                    fail_at_step=6, **kw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        e = max(err(a, b) for a, b in zip(pytree.leaves(ref["params"]),
+                                          pytree.leaves(got["params"])))
+        print(f"LM (c) restart: fail_at_step=6, restored from step 4, params "
+              f"vs uninterrupted {e:.2e} (bound 1e-6)")
+        if e > 1e-6:
+            return f"LM phase (c): restarted params differ by {e}"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1983,6 +2227,13 @@ def main() -> int:
     msg = shard_phase(torch, cfg, idx, answers, stats)
     if msg:
         return fail(msg)
+
+    # ---- 12. the LM substrate -----------------------------------------
+    t0 = time.perf_counter()
+    msg = lm_phase(torch)
+    if msg:
+        return fail(msg)
+    print(f"LM phase: {time.perf_counter() - t0:.3f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,10 @@ CPU, where the hand-written kernels' plain PyTorch versions stand in.
 Importing the package builds nothing: the kernels are compiled with
 ``nvcc`` at their first launch (``kernels/_build.py``).
 
+The seed's LM substrate rides along: ``configs``, ``models``, ``train``,
+``data``, ``checkpoint`` and ``launch/train.py`` (plain PyTorch, no
+hand-written kernel), with params laid out as the reference's.
+
 The JAX package ``repro`` is the reference; this package imports none of
 it, nor JAX.
 """

@@ -1,0 +1,13 @@
+"""deepseek-v2-236b [moe] — MLA kv_lora=512, 2 shared + 160 routed top-6.
+[arXiv:2405.04434; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-v2-236b", family="moe",
+    n_layers=60, d_model=5120, n_heads=128, n_kv_heads=128,
+    d_ff=1536, vocab=102400,
+    n_experts=160, experts_per_token=6, n_shared_experts=2,
+    d_ff_expert=1536,
+    mla=True, q_lora_rank=1536, kv_lora_rank=512,
+    qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+)

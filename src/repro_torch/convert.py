@@ -1,4 +1,4 @@
-"""Index state as plain numpy arrays, in both directions.
+"""Index state and LM params as plain numpy arrays, in both directions.
 
 ``index_to_numpy`` flattens a ``TDRIndex`` into a dict of numpy arrays
 (packed planes as ``uint32``, the CSR graph, the config as a dict);
@@ -7,6 +7,12 @@ The planes cross as zero-copy ``view(np.int32)`` of the ``uint32`` words,
 so an index built by the JAX package (its arrays taken with
 ``np.asarray``) answers queries through this package unchanged, and query
 faults show up apart from build faults.
+
+``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry an LM param or
+train-state tree (nested dicts, the reference's names and stacked
+``[L, ...]`` shapes) across the same way, so both packages compute from
+the same weights.  bfloat16 leaves cross as float32 arrays (lossless):
+numpy has no bfloat16 of its own.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import warnings
 import numpy as np
 import torch
 
+from . import pytree
 from .engine import resolve_device
 from .graph import Graph
 from .tdr_build import TDRConfig, TDRIndex
@@ -76,3 +83,27 @@ def index_from_numpy(state: dict, device="cuda") -> TDRIndex:
         fixpoint_rounds=int(state.get("fixpoint_rounds", 0)),
         disc=None if disc is None else np.asarray(disc, dtype=np.int32),
         **aux)
+
+
+def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """A nested dict of numpy arrays (JAX arrays pass through
+    ``np.asarray``) as tensors on ``device`` (default: the card), each
+    leaf at its own dtype; ``bfloat16`` leaves stay ``bfloat16``."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+    return pytree.tree_map(leaf, tree)
+
+
+def lm_params_to_numpy(tree: dict) -> dict:
+    """The inverse of ``lm_params_from_numpy``: numpy arrays on the host,
+    ``bfloat16`` leaves widened to float32."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return pytree.tree_map(leaf, tree)

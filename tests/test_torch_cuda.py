@@ -954,3 +954,146 @@ def test_two_gloo_ranks_on_card(cuda):
         timeout=600)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     assert "torch multidevice check OK" in r.stdout
+
+
+# ------------------------------------------------------- the LM substrate
+# The reduced archs in float32 on the card against the port on the CPU
+# from the same weights and batch, TF32 off for matmuls and cuDNN.  The
+# sums run in another order on the card, nothing else differs: logits
+# O(4) within 1e-4, and a train step's params within a tenth of lr (Adam
+# moves a leaf whose grad is near 0 by a fraction of lr that a last-bit
+# grad difference changes).
+LM_ARCHS = ("dbrx-132b", "deepseek-v2-236b", "gemma3-27b", "musicgen-large",
+            "phi-3-vision-4.2b", "phi3-mini-3.8b", "rwkv6-3b", "zamba2-1.2b")
+
+
+@pytest.fixture
+def cuda_fp32(cuda):
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _lm_case(arch, dev, s=40):
+    from repro_torch import configs, pytree
+    from repro_torch.models import init_params
+    cfg = configs.get(arch).reduced()
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s)))
+    media = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_media_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.n_media_tokens else None)
+    on = pytree.tree_map(lambda t: t.to(dev), params)
+    return cfg, params, on, toks, media
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_and_decode_on_card_match_cpu(cuda_fp32, arch):
+    from repro_torch.models import decode_step, forward, prefill
+    cfg, params, on, toks, media = _lm_case(arch, cuda_fp32)
+    med = None if media is None else media.to(cuda_fp32)
+    want, aux_h, _ = forward(cfg, params, toks, media)
+    got, aux_d, _ = forward(cfg, on, toks.to(cuda_fp32), med)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux_d.cpu(), aux_h, rtol=1e-5, atol=1e-7)
+    s0 = toks.shape[1] - 3
+    lh, ch = prefill(cfg, params, toks[:, :s0], media, max_len=toks.shape[1])
+    ld, cd = prefill(cfg, on, toks[:, :s0].to(cuda_fp32), med,
+                     max_len=toks.shape[1])
+    torch.testing.assert_close(ld.cpu(), lh, rtol=1e-4, atol=1e-4)
+    for t in range(s0, toks.shape[1]):
+        lh, ch = decode_step(cfg, params, ch, toks[:, t])
+        ld, cd = decode_step(cfg, on, cd, toks[:, t].to(cuda_fp32))
+        torch.testing.assert_close(ld.cpu(), lh, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ld.cpu(), want[:, t], rtol=5e-3,
+                                   atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(cuda_fp32, arch):
+    from repro_torch import pytree
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg, params, _, toks, media = _lm_case(arch, cuda_fp32)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), remat=True,
+                           remat_policy="dots")
+    out = {}
+    for dev in ("cpu", cuda_fp32):
+        batch = {"tokens": toks.to(dev)}
+        if media is not None:
+            batch["media"] = media.to(dev)
+        out[str(dev)] = step(init_train_state(cfg, params, device=dev),
+                             batch)
+    (sh, mh), (sd, md) = out["cpu"], out[str(cuda_fp32)]
+    torch.testing.assert_close(md["loss"].cpu(), mh["loss"], rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(md["grad_norm"].cpu(), mh["grad_norm"],
+                               rtol=1e-4, atol=0)
+    for (name, a), b in zip(pytree.leaves_with_paths(sh["params"]),
+                            pytree.leaves(sd["params"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4, msg=name)
+
+
+@pytest.mark.gpu
+def test_lm_bf16_checkpoint_on_card(cuda, tmp_path):
+    """A bf16 train state on the card saves and restores onto the card
+    bit for bit."""
+    import dataclasses as dc
+    from repro_torch import configs, pytree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state
+    cfg = dc.replace(configs.get("phi3-mini-3.8b").reduced(),
+                     dtype="bfloat16")
+    state = init_train_state(cfg, init_params(cfg, 0))
+    assert pytree.leaves(state["params"])[0].dtype == torch.bfloat16
+    Checkpointer(str(tmp_path)).save(1, state)
+    _, got = Checkpointer(str(tmp_path)).restore(state)
+    for a, b in zip(pytree.leaves(state), pytree.leaves(got)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache",
+                                   "init_train_state", "batch_for_step",
+                                   "restore", "train_loop", "train_main",
+                                   "lm_params_from_numpy"])
+def test_lm_entry_points_refuse_the_cpu_by_default(entry, tmp_path,
+                                                   monkeypatch):
+    """Without a card the LM entry points raise unless asked for the CPU
+    (a no-card check: it skips where a card is)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import sys
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import AdamWConfig, init_train_state
+    cfg = configs.get("phi3-mini-3.8b").reduced()
+    params = init_params(cfg, 0, device="cpu")
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, params)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    monkeypatch.setattr(sys, "argv", ["train", "--steps", "1",
+                                      "--ckpt-dir", str(tmp_path / "cli")])
+    call = {"init_params": lambda: init_params(cfg),
+            "init_cache": lambda: init_cache(cfg, 1, 8),
+            "init_train_state": lambda: init_train_state(cfg, params),
+            "batch_for_step": lambda: batch_for_step(dc, 0),
+            "restore": lambda: ck.restore(params),
+            "train_loop": lambda: train_cli.train_loop(
+                cfg, dc, AdamWConfig(), 1, Checkpointer(str(tmp_path / "t"))),
+            "train_main": train_cli.main,
+            "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+                convert.lm_params_to_numpy(params))}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

@@ -27,7 +27,24 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.kernels.block_sparse",
            "repro_torch.kernels.lane_matmul", "repro_torch.kernels.ops",
            "repro_torch.kernels.pattern_filter",
-           "repro_torch.kernels.popcount", "repro_torch.kernels.ref")
+           "repro_torch.kernels.popcount", "repro_torch.kernels.ref",
+           "repro_torch.pytree", "repro_torch.configs",
+           "repro_torch.configs.base", "repro_torch.configs.dbrx_132b",
+           "repro_torch.configs.deepseek_v2_236b",
+           "repro_torch.configs.gemma3_27b",
+           "repro_torch.configs.musicgen_large",
+           "repro_torch.configs.phi3_mini_3p8b",
+           "repro_torch.configs.phi3_vision_4p2b",
+           "repro_torch.configs.rwkv6_3b", "repro_torch.configs.tdr_graph",
+           "repro_torch.configs.zamba2_1p2b", "repro_torch.models",
+           "repro_torch.models.attention", "repro_torch.models.layers",
+           "repro_torch.models.model", "repro_torch.models.moe",
+           "repro_torch.models.ssm", "repro_torch.models.transformer",
+           "repro_torch.train", "repro_torch.train.optimizer",
+           "repro_torch.train.train_step", "repro_torch.data",
+           "repro_torch.data.pipeline", "repro_torch.checkpoint",
+           "repro_torch.checkpoint.checkpointer",
+           "repro_torch.launch.train")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                        r"|from\s+repro(\.|\s)(?!_))", re.M)
 
