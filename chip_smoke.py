@@ -166,6 +166,29 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    reduced ``train_loop`` with ``fail_at_step`` ends with the params of
    an uninterrupted run within 1e-6 (deterministic algorithms on).
 
+13. The LM mesh layer and cost accounting (``repro_torch.models.pspec``,
+   ``launch/mesh``, ``launch/sharding``, ``launch/dryrun``,
+   ``utils/cost``, ``utils/roofline``), which reaches no hand-written
+   kernel either.  (a) phi3-mini-3.8b as in 12 (b), three train steps
+   from seed 0's state on the same batch, unmeshed and then under
+   ``pspec.use_mesh`` on a 1x1 ``DeviceMesh`` over the card (nccl, world
+   1) with the state placed by ``distribute_tree(state_specs(...))``,
+   both under deterministic algorithms: losses and params equal within
+   12 (c)'s 1e-6 (0 expected); ms per step after the first, tokens/s and
+   peak memory of both, DTensor's overhead, phase 12's step beside them.  (b) One meshed
+   ``decode_step`` after a 256-token prefill against the unmeshed one
+   (within 12's 0.125; 0 expected).  (c) A subprocess (started first, so
+   it runs beside (a) and (b)) runs ``python -m
+   repro_torch.launch.dryrun`` for phi3-mini-3.8b x train_4k and x
+   decode_32k and for ``tdr-graph`` on the single-pod 16x16 mesh of
+   fake ranks on the card: per-rank peak memory, FLOPs, HBM and
+   collective bytes, the three H100 roofline terms, ``dominant``, MFU
+   and the trace time of each, held to finite, positive counts and a
+   train step whose counted FLOPs over 256 ranks are 0.3-1.2 of 6·N·D's
+   ratio to them.  With four or more cards, (a) also runs on a 2x2 mesh
+   of four nccl rank processes of this script, one card each (a figure,
+   not a check).
+
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a result when there is no CUDA card or no ``src/repro_torch``
@@ -230,6 +253,10 @@ LM_PREFILL_CHUNK = 1020        # a query chunk that divides the prompt
 LM_FP32_TOL = 1e-4             # reduced archs, card against CPU (+ rel.)
 LM_BF16_TOL = 0.125            # decode against forward: 4 bf16 ulps at 4-8
 BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16, data sheet
+MESH_PROMPT = 256               # mesh phase (b): prompt before the decode
+MESH_STEP_TOL = 1e-6           # mesh phase (a): 12 (c)'s rerun bound
+MESH_RANKS = 4                 # mesh phase: 2 x 2 ranks with four cards
+DRYRUN_TIMEOUT_S = 600         # mesh phase (c): the dry-run subprocess
 SHARD_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
                 "exact_jobs", "exact_qids", "plan_lookups", "plan_misses",
                 "corridor_active", "corridor_total", "compacted_chunks",
@@ -353,7 +380,7 @@ def live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries, b3_row,
     import tempfile
     from repro_torch import (bitset, compressed, deltalog, dfs_baseline,
                              engine, snapshot, tdr_build, tdr_query)
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     def same_index(a, b):
         bad = [p for p in ALL_PLANES if not torch.equal(getattr(a, p),
@@ -472,7 +499,7 @@ def live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries, b3_row,
           f"compress_blocks: {fresh.n_mixed}), every field equal")
     del fresh
     adj_p = eng_a.adjacency()
-    a_unp_p = bitset.unpack_bits(adj_p, kw * 32).to(torch.bfloat16)
+    a_unp_p = ref.unpacked_bf16(adj_p, kw * 32)
     if not b3_row("patched", comp_p, idx_a.base_v, adj_p, a_unp_p, False,
                   n_launches=n_patched):
         return "block_sparse_matmul disagrees on the patched operand"
@@ -635,8 +662,8 @@ def rpq_phase(torch, g, idx, record) -> str | None:
     x = ref.pad_k(x, kw * 32).contiguous()
     a_bits = int(bitset.popcount(a).sum())
     w = x.shape[1]
-    a_unp = bitset.unpack_bits(a, kw * 32).to(torch.bfloat16)
-    x_unp = bitset.unpack_bits(x, w * 32).to(torch.bfloat16)
+    a_unp = ref.unpacked_bf16(a, kw * 32)
+    x_unp = ref.unpacked_bf16(x, w * 32)
     print(f"bitset_matmul[rpq]: class matrix {tuple(a.shape)} with {a_bits} "
           f"set bits, NFA-state frontier {tuple(x.shape)} with "
           f"{int((x != 0).sum())} non-zero words (the last class with "
@@ -1454,9 +1481,10 @@ def shard_phase(torch, cfg, idx, answers, stats) -> str | None:
     return None
 
 
-def lm_phase(torch) -> str | None:
+def lm_phase(torch, figures: dict | None = None) -> str | None:
     """Phase 12: the LM substrate, reduced archs and phi3-mini-3.8b at
-    full width (module docstring, item 12)."""
+    full width (module docstring, item 12); ``figures`` receives the
+    timed step's ms, tokens/s and peak GiB."""
     import dataclasses
     import shutil
     import tempfile
@@ -1576,6 +1604,10 @@ def lm_phase(torch) -> str | None:
             losses.append(float(m["loss"]))
         peak = torch.cuda.max_memory_allocated()
         step_s = float(np.median(times))
+        if figures is not None:
+            figures.update(step_ms=step_s * 1e3,
+                           tokens_s=LM_BATCH * LM_SEQ / step_s,
+                           peak_gib=peak / 2**30)
         tokens = LM_BATCH * LM_SEQ
         flops = 6 * n_params * tokens / step_s
         print(f"LM (b) train_loop {LM_STEPS} steps + checkpoint: "
@@ -1666,6 +1698,344 @@ def lm_phase(torch) -> str | None:
         if e > 1e-6:
             return f"LM phase (c): restarted params differ by {e}"
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return None
+
+
+def _lm_cut():
+    """Phase 12's phi3-mini-3.8b: published widths, depth cut."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(LM_ARCH), n_layers=LM_LAYERS)
+
+
+def card_mesh(torch, data: int, model: int):
+    """A ``("data", "model")`` ``DeviceMesh`` over the cards of the
+    default process group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cuda", torch.arange(data * model).reshape(
+        data, model), mesh_dim_names=("data", "model"))
+
+
+def _timed_steps(torch, step_fn, state, batch, n: int):
+    """``n`` steps of ``step_fn``: (state, losses, seconds, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = m["loss"]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return state, losses, times, torch.cuda.max_memory_allocated()
+
+
+def dryrun_command(out: Path) -> list[str]:
+    """Phase 13 (c): the port's dry-run of the named cells on 256 fake
+    ranks of the card."""
+    return [sys.executable, "-m", "repro_torch.launch.dryrun",
+            "--arch", f"{LM_ARCH},tdr-graph", "--shape",
+            "train_4k,decode_32k", "--mesh", "single", "--out", str(out)]
+
+
+def check_dryrun(records: list) -> str | None:
+    """Phase 13 (c)'s checks on the dry-run's records; prints each."""
+    want = {(LM_ARCH, "train_4k"), (LM_ARCH, "decode_32k"), ("tdr-graph",)}
+    got = set()
+    for r in records:
+        h, ro, m = r["hlo"], r["roofline"], r["memory"]
+        key = (r["arch"],) if r["arch"] == "tdr-graph" else (r["arch"],
+                                                            r["shape"])
+        got.add(key)
+        print(f"mesh (c) dry-run {r['arch']} x {r['shape']} on "
+              f"{r['chips']} fake ranks of the card: per rank peak "
+              f"{m['peak_gb'] * 1e9 / 2**30:.2f} GiB, "
+              f"{h['flops_per_chip']:.4e} FLOP, "
+              f"{h['hbm_bytes_per_chip']:.4e} HBM B, "
+              f"{h['collective_bytes_per_chip']:.4e} collective B "
+              f"{dict(h['collectives'])}; roofline compute "
+              f"{ro['compute_s']:.6f} s, memory {ro['memory_s']:.6f} s, "
+              f"collective {ro['collective_s']:.6f} s, dominant "
+              f"{ro['dominant']}, MFU {ro['mfu']:.4f}, MODEL_FLOPS ratio "
+              f"{ro['model_flops_ratio']:.3f}; inputs {r['lower_s']} s, "
+              f"trace {r['compile_s']} s; replicated "
+              f"{r.get('replicated', {})}")
+        vals = [h["hbm_bytes_per_chip"], m["peak_gb"], ro["step_s"]]
+        if not all(np.isfinite(v) and v > 0 for v in vals) \
+                or h["collective_bytes_per_chip"] <= 0:
+            return f"mesh phase (c): {key} has a count <= 0: {h}, {m}"
+        if r["arch"] != "tdr-graph" and h["flops_per_chip"] <= 0:
+            return f"mesh phase (c): {key} counted no FLOPs"
+        if key == (LM_ARCH, "train_4k") and not (
+                0.3 < ro["model_flops_ratio"] < 1.2):
+            return (f"mesh phase (c): 6·N·D is {ro['model_flops_ratio']} "
+                    "of the counted train FLOPs")
+    if got != want:
+        return f"mesh phase (c): dry-run cells {sorted(got)}, want {want}"
+    return None
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 13's 2x2 figure (``chip_smoke.py --mesh-rank R
+    N DIR``): two train steps of phase 12's phi3-mini-3.8b on a 2x2
+    ``DeviceMesh`` (nccl, one card per rank); prints one JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import sharding
+    from repro_torch.models import init_params, pspec
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.utils.cost import CostCounter
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = card_mesh(torch, 2, world // 2)
+        cfg = _lm_cut()
+        dc = DataConfig(task="lm", vocab=cfg.vocab, seq_len=LM_SEQ,
+                        global_batch=LM_BATCH)
+        state = init_train_state(cfg, init_params(cfg, 0))
+        state = sharding.distribute_tree(
+            state, sharding.state_specs(cfg, state, mesh), mesh)
+        batch = sharding.distribute_tree(
+            batch_for_step(dc, 0),
+            sharding.batch_specs(cfg, mesh, with_media=False), mesh)
+        step_fn = make_train_step(cfg, AdamWConfig(), remat=True)
+        with pspec.use_mesh(mesh, pspec.default_mapping(False)):
+            state, losses, times, peak = _timed_steps(
+                torch, step_fn, state, batch, LM_TIMED_STEPS + 1)
+            with CostCounter() as counter:
+                step_fn(state, batch)
+        cost = counter.cost
+        print(json.dumps({
+            "rank": rank, "losses": losses, "ms": [t * 1e3 for t in times],
+            "peak_gib": peak / 2**30,
+            "collective_bytes": cost.collective_bytes,
+            "collectives": dict(cost.collectives),
+            "collective_counts": dict(cost.collective_counts),
+            "flops": cost.flops}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_figure_2x2(torch) -> None:
+    """Phase 13's 2x2 figure: ``MESH_RANKS`` rank processes of this script,
+    a card each; prints rank 0's line (a figure, not a check)."""
+    import shutil
+    import tempfile
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=root)
+    logs = [(open(Path(tmp) / f"rank{r}.out", "w+"),
+             open(Path(tmp) / f"rank{r}.err", "w+"))
+            for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(MESH_RANKS), tmp], stdout=o, stderr=e)
+        for r, (o, e) in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=SHARD_TIMEOUT_S)
+        outs = []
+        for o, e in logs:
+            o.seek(0)
+            e.seek(0)
+            outs.append((o.read(), e.read()))
+    except subprocess.TimeoutExpired:
+        print("mesh (a) 2x2: timed out (a figure, not a check)")
+        return
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o, e in logs:
+            o.close()
+            e.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = [o.strip().splitlines()[-1] if o.strip() else "" for o, _ in outs]
+    if any(p.returncode for p in procs):
+        err = next(e for p, (_, e) in zip(procs, outs) if p.returncode)
+        print(f"mesh (a) 2x2: a rank failed (a figure, not a check): "
+              f"{err.strip().splitlines()[-3:]}")
+        return
+    fig = json.loads(lines[0])
+    step_ms = float(np.median(fig["ms"][1:]))
+    print(f"mesh (a) 2x2 mesh of {MESH_RANKS} nccl ranks, a card each: "
+          f"{step_ms:.1f} ms per step after the first "
+          f"({', '.join(f'{t:.1f}' for t in fig['ms'])}), "
+          f"{LM_BATCH * LM_SEQ / (step_ms / 1e3):.1f} tokens/s, loss "
+          f"{', '.join(f'{x:.4f}' for x in fig['losses'])}, peak "
+          f"{fig['peak_gib']:.2f} GiB per rank; rank 0's collectives per "
+          f"step {fig['collective_bytes']:.4e} B {fig['collectives']} "
+          f"{fig['collective_counts']}, {fig['flops']:.4e} FLOP")
+
+
+def mesh_phase(torch, lm_figures: dict) -> str | None:
+    """Phase 13: the mesh layer on the card and the fake-rank dry-run
+    (module docstring, item 13)."""
+    import os
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    out = root / "build" / "dryrun_smoke.json"
+    log = root / "build" / "dryrun_smoke.log"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with open(log, "w") as log_f:
+        dry = subprocess.Popen(dryrun_command(out), cwd=root, env=env,
+                               stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            msg = mesh_card(torch, lm_figures)
+            if msg:
+                return msg
+            try:
+                dry.wait(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                return (f"mesh phase (c): the dry-run ran past "
+                        f"{DRYRUN_TIMEOUT_S} s")
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+    print(f"mesh (c) dry-run subprocess: {time.perf_counter() - t0:.1f} s "
+          f"from its start, beside (a) and (b)")
+    if dry.returncode:
+        return ("mesh phase (c): the dry-run failed: "
+                + "\n".join(log.read_text().strip().splitlines()[-8:]))
+    data = json.loads(out.read_text())
+    if data["failures"]:
+        return f"mesh phase (c): dry-run failures {data['failures']}"
+    msg = check_dryrun(data["results"])
+    if msg:
+        return msg
+    if torch.cuda.device_count() >= MESH_RANKS:
+        mesh_figure_2x2(torch)
+    return None
+
+
+def mesh_card(torch, lm_figures: dict) -> str | None:
+    """Phase 13 (a) and (b) on a 1x1 mesh over the card."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import sharding
+    from repro_torch.models import decode_step, init_params, prefill, pspec
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = _lm_cut()
+    dc = DataConfig(task="lm", vocab=cfg.vocab, seq_len=LM_SEQ,
+                    global_batch=LM_BATCH)
+    batch = batch_for_step(dc, 0)
+    step_fn = make_train_step(cfg, AdamWConfig(), remat=True)
+    tmp = tempfile.mkdtemp(prefix="mesh1_", dir=Path(__file__).resolve()
+                           .parent / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*deterministic.*")
+            warnings.filterwarnings("ignore", ".*sequential all_reduce.*")
+            mesh = card_mesh(torch, 1, 1)
+            mapping = pspec.default_mapping(False)
+            # (a) the steps unmeshed, then the same under the mesh; the
+            # first of each warms up, the others are timed
+            n_steps = LM_TIMED_STEPS + 1
+            state = init_train_state(cfg, init_params(cfg, 0))
+            state, l_plain, t_plain, pk_plain = _timed_steps(
+                torch, step_fn, state, batch, n_steps)
+            want = state["params"]
+            del state
+            state = init_train_state(cfg, init_params(cfg, 0))
+            state = sharding.distribute_tree(
+                state, sharding.state_specs(cfg, state, mesh), mesh)
+            dbatch = sharding.distribute_tree(
+                batch, sharding.batch_specs(cfg, mesh, with_media=False),
+                mesh)
+            with pspec.use_mesh(mesh, mapping):
+                state, l_mesh, t_mesh, pk_mesh = _timed_steps(
+                    torch, step_fn, state, dbatch, n_steps)
+            e_par = max(float((a.float() - b.full_tensor().float()).abs()
+                              .max()) for a, b in zip(
+                pytree.leaves(want), pytree.leaves(state["params"])))
+            e_loss = max(abs(a - b) for a, b in zip(l_plain, l_mesh))
+            del state, want
+            tok = LM_BATCH * LM_SEQ
+            ms_p, ms_m = (float(np.median(t[1:])) * 1e3 for t in (t_plain,
+                                                                  t_mesh))
+            p12 = (f"; phase 12's step {lm_figures['step_ms']:.1f} ms, "
+                   f"{lm_figures['tokens_s']:.1f} tokens/s, peak "
+                   f"{lm_figures['peak_gib']:.2f} GiB") if lm_figures \
+                else ""
+            print(f"mesh (a) {LM_ARCH} {LM_LAYERS} layers, {LM_BATCH} x "
+                  f"{LM_SEQ} tokens, {n_steps} steps from seed 0's state, "
+                  f"deterministic algorithms: losses unmeshed "
+                  f"{', '.join(f'{x:.6f}' for x in l_plain)}, 1x1 mesh "
+                  f"{', '.join(f'{x:.6f}' for x in l_mesh)}; max |loss "
+                  f"diff| {e_loss:.3e}, max |param diff| {e_par:.3e} "
+                  f"(bound {MESH_STEP_TOL})")
+            print(f"mesh (a) unmeshed {ms_p:.1f} ms per step after the "
+                  f"first ({', '.join(f'{t * 1e3:.1f}' for t in t_plain)}), "
+                  f"{tok / ms_p * 1e3:.1f} tokens/s, peak "
+                  f"{pk_plain / 2**30:.2f} GiB; 1x1 mesh {ms_m:.1f} ms per "
+                  f"step ({', '.join(f'{t * 1e3:.1f}' for t in t_mesh)}), "
+                  f"{tok / ms_m * 1e3:.1f} tokens/s, peak "
+                  f"{pk_mesh / 2**30:.2f} GiB; DTensor overhead "
+                  f"{100 * (ms_m / ms_p - 1):.1f}%{p12}")
+            if e_par > MESH_STEP_TOL or e_loss > MESH_STEP_TOL \
+                    or not all(np.isfinite(l_mesh)):
+                return (f"mesh phase (a): the 1x1 mesh's step differs by "
+                        f"{e_par} (params), {e_loss} (loss)")
+
+            # (b) one decode step after a prefill, unmeshed and meshed
+            params = init_params(cfg, 0)
+            toks = batch["tokens"]
+            with torch.no_grad():
+                _, cache = prefill(cfg, params, toks[:, :MESH_PROMPT],
+                                   max_len=2 * MESH_PROMPT)
+            dcache = sharding.distribute_tree(
+                pytree.tree_map(lambda t: t.clone() if torch.is_tensor(t)
+                                else t, cache),
+                sharding.cache_specs(cfg, cache, mesh, LM_BATCH), mesh)
+            dparams = sharding.distribute_tree(
+                params, sharding.param_specs(cfg, params, mesh), mesh)
+            step_tok = toks[:, MESH_PROMPT]
+            got_u, _ = decode_step(cfg, params, cache, step_tok)
+            dtok = sharding.distribute_tree(
+                {"t": step_tok}, {"t": pspec.P(("data",))}, mesh)["t"]
+            with pspec.use_mesh(mesh, mapping):
+                got_m, dcache = decode_step(cfg, dparams, dcache, dtok)
+            e_dec = float((got_u.float() - got_m.full_tensor().float())
+                          .abs().max())
+            e_cache = max(float((a.float() - b.full_tensor().float())
+                                .abs().max()) for a, b in zip(
+                pytree.leaves(cache), pytree.leaves(dcache))
+                if torch.is_tensor(a))
+            print(f"mesh (b) decode_step after a {MESH_PROMPT}-token "
+                  f"prefill, 1x1 mesh against unmeshed: logits max |diff| "
+                  f"{e_dec:.3e}, cache {e_cache:.3e} (bound {LM_BF16_TOL}); "
+                  f"replicated points {dict(pspec.REPLICATED)}")
+            if e_dec > LM_BF16_TOL or e_cache > LM_BF16_TOL \
+                    or not bool(torch.isfinite(got_u).all()):
+                return f"mesh phase (b): the meshed decode differs by {e_dec}"
+            del params, dparams, cache, dcache
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     return None
 
@@ -1792,12 +2162,12 @@ def main() -> int:
                         dim=1).contiguous()}
     # library yardstick of B1 and B3 (timed only): one bf16 matmul of the
     # unpacked operands
-    a_unp = bitset.unpack_bits(adj, kw * 32).to(torch.bfloat16)
+    a_unp = ref.unpacked_bf16(adj, kw * 32)
     for w, x in xs.items():
         x = ref.pad_k(x, kw * 32).contiguous()
         got = ops.frontier_step(adj, x)
         want = ref.bitset_matmul_ref(adj, x)
-        x_unp = bitset.unpack_bits(x, w * 32).to(torch.bfloat16)
+        x_unp = ref.unpacked_bf16(x, w * 32)
         ok &= record(
             f"bitset_matmul[W={w}]",
             "src/repro_torch/kernels/csrc/bitset_matmul.cu",
@@ -1877,8 +2247,7 @@ def main() -> int:
         err = max(words_err(torch, got, ref.block_sparse_matmul_ref(bcomp, x)),
                   words_err(torch, got, ops.frontier_step(
                       adj_c, ref.pad_k(x, kw * 32).contiguous())))
-        x_unp = bitset.unpack_bits(ref.pad_k(x, kw * 32), w * 32).to(
-            torch.bfloat16)
+        x_unp = ref.unpacked_bf16(ref.pad_k(x, kw * 32), w * 32)
         print(f"block_sparse_matmul[{label}]: "
               f"{'reverse' if reverse else 'forward'} adjacency, X "
               f"{tuple(x.shape)}, {int(xany.sum())} of {kb} "
@@ -1902,8 +2271,7 @@ def main() -> int:
     for label, bcomp, x in frontiers:
         rev = bcomp is eng.block_adjacency(reverse=True)
         adj_c = eng.adjacency(reverse=rev)
-        a_unp_c = a_unp if not rev else bitset.unpack_bits(
-            adj_c, kw * 32).to(torch.bfloat16)
+        a_unp_c = a_unp if not rev else ref.unpacked_bf16(adj_c, kw * 32)
         ok &= b3_row(label, bcomp, x, adj_c, a_unp_c, rev)
         del a_unp_c
     comp = comp_f
@@ -2230,10 +2598,18 @@ def main() -> int:
 
     # ---- 12. the LM substrate -----------------------------------------
     t0 = time.perf_counter()
-    msg = lm_phase(torch)
+    lm_figures: dict = {}
+    msg = lm_phase(torch, lm_figures)
     if msg:
         return fail(msg)
     print(f"LM phase: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 13. the LM mesh layer and the dry-run ------------------------
+    t0 = time.perf_counter()
+    msg = mesh_phase(torch, lm_figures)
+    if msg:
+        return fail(msg)
+    print(f"mesh phase: {time.perf_counter() - t0:.3f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2245,4 +2621,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
         sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

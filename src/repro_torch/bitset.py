@@ -143,6 +143,11 @@ def words_contain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a & b) == b).all(dim=-1)
 
 
+def words_intersect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a ∩ b ≠ ∅`` over trailing word axis -> bool [...]."""
+    return ((a & b) != 0).any(dim=-1)
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Population count over the trailing word axis -> int32 (SWAR on the
     words widened to their unsigned int64 values)."""

@@ -72,6 +72,13 @@ def _answer_term(graph: Graph, u: int, v: int, term: pat.DnfTerm,
     return False
 
 
+def answer_lcr(graph: Graph, u: int, v: int, allowed: set[int],
+               stats: SearchStats | None = None) -> bool:
+    """Exact LCR answer (BFS restricted to allowed labels)."""
+    return answer_pcr(graph, u, v, pat.lcr(sorted(allowed), graph.n_labels),
+                      stats)
+
+
 def reachable_set(graph: Graph, u: int) -> np.ndarray:
     """Plain topological closure of ``u`` (bool [V])."""
     out = np.zeros(graph.n_vertices, dtype=bool)

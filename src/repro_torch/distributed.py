@@ -49,8 +49,10 @@ from . import tdr_build as build_mod
 from . import tdr_query as query_mod
 from .graph import Graph
 
-# backend -> the device types its collectives take here
-_PAIRS = {"gloo": ("cpu", "cuda"), "nccl": ("cuda",)}
+# backend -> the device types its collectives take here ("fake" is the
+# dry-run's process group: it moves nothing, and its tensors are fake)
+_PAIRS = {"gloo": ("cpu", "cuda"), "nccl": ("cuda",),
+          "fake": ("cpu", "cuda")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,3 +378,59 @@ def answer_batch(index: "build_mod.TDRIndex", queries, *, mesh: ShardMesh,
     dealt over the ranks."""
     return query_mod.answer_batch(index, queries, mesh=mesh, **kw)
 
+
+# ------------------------------------------------------ static-round form
+@dataclasses.dataclass(frozen=True)
+class LoweredClosure:
+    """The distributed closure at a static round count, bound to a mesh
+    and to per-rank sizes (``lower_distributed_closure``)."""
+    mesh: ShardMesh
+    per: int            # rows this rank owns
+    words: int          # packed words per row
+    e_max: int          # edge slots per rank
+    rounds: int
+    chunk_words: int
+
+    def inputs(self) -> tuple:
+        """Uninitialised inputs of this rank's shapes on the mesh's device:
+        ``(rows int32 [per, W], local int64 [e_max], remote int64
+        [e_max], valid bool [e_max])``; fake under ``FakeTensorMode``."""
+        dev = self.mesh.device
+        return (torch.empty((self.per, self.words), dtype=torch.int32,
+                            device=dev),
+                torch.empty((self.e_max,), dtype=torch.int64, device=dev),
+                torch.empty((self.e_max,), dtype=torch.int64, device=dev),
+                torch.empty((self.e_max,), dtype=torch.bool, device=dev))
+
+    def __call__(self, rows, local, remote, valid) -> torch.Tensor:
+        """``R = step(rows)``, then ``rounds`` times ``R |= step(R)``: this
+        rank's closure rows (``rows`` are its packed seeds, ``local`` and
+        ``remote`` its edges as ``partition_graph`` lays them out)."""
+        okw = bitset.full_words_where(valid)[:, None]
+
+        def step(r):
+            return engine_mod.propagate_sharded(
+                r, remote, local, okw, self.mesh, num_segments=self.per,
+                chunk_words=self.chunk_words)
+
+        r = step(rows)
+        for _ in range(self.rounds):
+            r = r | step(r)
+        return r
+
+
+def lower_distributed_closure(mesh: ShardMesh, v_global: int, e_max: int,
+                              nbits: int, rounds: int,
+                              chunk: int = 64) -> LoweredClosure:
+    """The distributed fixpoint at a static round count (for the dry-run).
+
+    A port of the reference's shape-only lowering: on the ``segment``
+    path, each round all-gathers the packed int32 word table (``[per, W]``
+    blocks) and ORs it into the owned rows.  Unlike the runtime paths the
+    round count is fixed, so a traced run has a fixed number of rounds to
+    count; ``distributed_closure`` and ``build_index`` converge on the
+    reduced changed flag instead.  At the fixpoint's round count (or
+    more) the result is ``distributed_closure``'s rows."""
+    per = -(-v_global // mesh.size)
+    return LoweredClosure(mesh, per, bitset.n_words(nbits), e_max, rounds,
+                          max(1, chunk // bitset.WORD))

@@ -73,6 +73,13 @@ def way_filter_at_ref(u, v, req, forb, null_plane, vtx_packed, h_vtx, h_lab,
                           vtx_packed[v], req, forb, null_plane)
 
 
+def unpacked_bf16(words: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Packed rows as a bf16 0/1 matrix ``[N, nbits]``: the operand of the
+    library yardstick a kernel is timed against (one bf16 ``torch.matmul``
+    of the unpacked bits).  Timing only: no path computes on it."""
+    return bitset.unpack_bits(words, nbits).to(torch.bfloat16)
+
+
 def pad_k(x: torch.Tensor, k_pad: int) -> torch.Tensor:
     """Zero-pad the row axis of ``x`` up to ``k_pad`` rows."""
     if x.shape[0] < k_pad:

@@ -13,11 +13,12 @@ MLA keeps the latent formulation: the cache stores the compressed
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
-from . import layers
+from . import layers, pspec
 from ..configs.base import ModelConfig
 
 NEG_INF = -1e30
@@ -75,8 +76,16 @@ def _sdpa(q, k, v, q_pos, k_pos, window, scale, use_window=True):
     """softmax(q k^T / sqrt) v with mask; q [B,Sq,H,hd] k/v [B,Sk,KV,hd].
 
     Scores and the value product are f32; the probabilities are cast to
-    the value dtype before the product, as the reference does.
+    the value dtype before the product, as the reference does.  Under a
+    mesh each rank attends its own batch rows and heads.
     """
+    return pspec.local(functools.partial(
+        _sdpa_local, q_pos=q_pos, k_pos=k_pos, window=window, scale=scale,
+        use_window=use_window), q, k, v, axes=((0, 2),) * 3,
+        out_axes=((0, 2),), point="attention")
+
+
+def _sdpa_local(q, k, v, *, q_pos, k_pos, window, scale, use_window):
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -126,16 +135,30 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     theta = theta if theta is not None else cfg.rope_theta
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    kk = (x @ p["wk"]).reshape(b, s, kv, hd)
-    vv = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = pspec.split_heads(x @ p["wq"], h, hd)
+    kk = pspec.split_heads(x @ p["wk"], kv, hd)
+    vv = pspec.split_heads(x @ p["wv"], kv, hd)
     pos2 = positions if positions.ndim == 2 else positions[None, :]
     q = layers.apply_rope(q, pos2, theta)
     kk = layers.apply_rope(kk, pos2, theta)
+    q = pspec.constrain(q, "batch", None, "heads", None)
+    kk = pspec.constrain(kk, "batch", None, "kv", None)
+    vv = pspec.constrain(vv, "batch", None, "kv", None)
     scale = hd ** -0.5
+    # TP shardability: when KV heads don't divide the model axis but H
+    # does, expand KV to full heads so the attention products shard
+    # head-wise instead of replicating.
+    tp = pspec.logical_axis_size("heads")
+    expand = (h > kv) and (kv % tp != 0) and (h % tp == 0)
 
     if cache is None:
-        y = _chunked_sdpa(q, kk, vv, pos2[0], window, scale, q_chunk,
+        kc, vc = kk, vv
+        if expand:
+            kc = pspec.constrain(kk.repeat_interleave(h // kv, dim=2),
+                                 "batch", None, "heads", None)
+            vc = pspec.constrain(vv.repeat_interleave(h // kv, dim=2),
+                                 "batch", None, "heads", None)
+        y = _chunked_sdpa(q, kc, vc, pos2[0], window, scale, q_chunk,
                           use_window)
         return y.reshape(b, s, h * hd) @ p["wo"], (kk, vv)
 
@@ -147,14 +170,39 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     valid = k_pos <= idx
     if window and use_window:
         valid &= (idx - k_pos) < window
+    y = pspec.local(functools.partial(_decode_gqa, valid=valid, scale=scale),
+                    q, ck, cv, axes=((0, 2),) * 3, out_axes=((0, 2),),
+                    point="attention.decode")
+    # one query row: the output product as the [B, D] matrix product a
+    # 3-D matmul folds into, so a DTensor, whose global strides may say
+    # otherwise of the size-1 axis, takes the same product
+    y = (y.reshape(b, h * hd).to(x.dtype) @ p["wo"])[:, None, :]
+    return y, (ck, cv)
+
+
+def _decode_gqa(q, ck, cv, *, valid, scale):
+    """One query row q [B,1,H,hd] against the cache ck/cv [B,T,KV,hd]
+    where ``valid`` [T]; returns [B,1,H,hd]."""
+    b, _, h, hd = q.shape
+    kv = ck.shape[2]
     qg = (q * scale).reshape(b, 1, kv, h // kv, hd)
     scores = torch.einsum("bqgrh,bkgh->bgrqk", qg.float(), ck.float())
     scores = scores.masked_fill(~valid, NEG_INF)
     prob = torch.softmax(scores, dim=-1)
     y = torch.einsum("bgrqk,bkgh->bqgrh", prob.to(cv.dtype).float(),
                      cv.float())
-    y = y.reshape(b, 1, h * hd).to(x.dtype) @ p["wo"]
-    return y, (ck, cv)
+    return y.reshape(b, 1, h, cv.shape[-1])
+
+
+def _decode_mla(qf, kf, v, *, valid, scale):
+    """One query row qf [B,1,H,d] against kf [B,T,H,d], v [B,T,H,dv]
+    where ``valid`` [T]; returns [B,1,H,dv]."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", (qf * scale).float(),
+                          kf.float())
+    scores = scores.masked_fill(~valid, NEG_INF)
+    prob = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype).float(),
+                        v.float())
 
 
 # ---------------------------------------------------------------- MLA fwd
@@ -174,7 +222,8 @@ def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     pos2 = positions if positions.ndim == 2 else positions[None, :]
 
     q_lat = layers.rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (q_lat @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    q = pspec.split_heads(q_lat @ p["wq_b"], h, dn + dr)
+    q = pspec.constrain(q, "batch", None, "heads", None)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, pos2, cfg.rope_theta)
 
@@ -189,7 +238,8 @@ def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k_rope = _write_cache(cache["k_rope"], k_rope, cache["index"])
 
     t = c_kv.shape[1]
-    kv = (c_kv @ p["wkv_b"]).reshape(b, t, h, dn + dv)
+    kv = pspec.split_heads(c_kv @ p["wkv_b"], h, dn + dv)
+    kv = pspec.constrain(kv, "batch", None, "heads", None)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     scale = (dn + dr) ** -0.5
     qf = torch.cat([q_nope, q_rope], dim=-1)
@@ -200,10 +250,8 @@ def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         return y.reshape(b, s, h * dv) @ p["wo"], (c_kv, k_rope)
 
     valid = torch.arange(t, device=x.device) <= cache["index"]
-    scores = torch.einsum("bqhd,bkhd->bhqk", (qf * scale).float(),
-                          kf.float())
-    scores = scores.masked_fill(~valid, NEG_INF)
-    prob = torch.softmax(scores, dim=-1)
-    y = torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype).float(), v.float())
-    y = y.reshape(b, 1, h * dv).to(x.dtype) @ p["wo"]
+    y = pspec.local(functools.partial(_decode_mla, valid=valid, scale=scale),
+                    qf, kf, v, axes=((0, 2),) * 3, out_axes=((0, 2),),
+                    point="attention.decode")
+    y = (y.reshape(b, h * dv).to(x.dtype) @ p["wo"])[:, None, :]
     return y, (c_kv, k_rope)

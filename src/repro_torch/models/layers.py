@@ -12,11 +12,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import pspec
+
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      dtype) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2], times ``std``, drawn in f32."""
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if isinstance(t, torch._subclasses.FakeTensor):
+        # the dry-run's shape-only params: trunc_normal_ reads a value,
+        # which a fake tensor has none of
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(dtype)
 
@@ -90,10 +96,18 @@ def embed(p: dict, tokens: torch.Tensor, media=None,
     CLIP/EnCodec frontend is a stub); they overwrite the first ``n_media``
     positions of the sequence.
     """
-    x = p["tok"][tokens]
+    x = gather_rows(p["tok"], tokens)
     if media is not None and n_media:
         x = torch.cat([media.to(x.dtype), x[:, n_media:, :]], dim=1)
     return x
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  Under a mesh each rank gathers its own ids' rows
+    from the whole table, gathered first over the vocab shards (DTensor's
+    rule for the index backward fails on a vocab-sharded table)."""
+    return pspec.local(lambda t, i: t[i], table, ids, axes=((None,), (0,)),
+                       out_axes=((0,),), point="embed.vocab")
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -104,9 +118,15 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask=None) -> torch.Tensor:
     """Mean next-token CE in f32 (stable logsumexp)."""
-    logits = logits.float()
+    # DTensor's gather along a sharded vocab dim fails (its mask buffer
+    # indexes the wrong rank of the logits): the vocab is gathered first,
+    # and each rank picks its own rows' labels
+    logits = pspec.replicated(logits, "cross_entropy.vocab", -1).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ll = pspec.local(
+        lambda lg, lb: torch.gather(lg, -1, lb[..., None].long())[..., 0],
+        logits, labels, axes=((0,), (0,)), out_axes=((0,),),
+        point="cross_entropy.vocab")
     nll = lse - ll
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1)

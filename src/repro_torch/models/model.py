@@ -11,9 +11,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import attention, layers, moe, ssm
-from .transformer import (forward, init_params, layer, layer_flags,
+from .transformer import (forward, init_params, layer, layer_flags_np,
                           model_dtype)
 from ..bitset import resolve_device
 from ..configs.base import ModelConfig
@@ -81,17 +82,23 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     logits, _, seeds = forward(cfg, params, tokens, media,
                                collect_cache=True, q_chunk=q_chunk)
     cache = init_cache(cfg, b, max_len, device=tokens.device)
+
+    def primed(name, seed):
+        # the seed's s positions, then zeros to max_len (a pad, not a
+        # slice write, so a sharded seed stays sharded under a mesh)
+        pad = [0, 0] * (seed.ndim - 3) + [0, max_len - s]
+        return F.pad(seed.to(cache[name].dtype), pad)
     if cfg.block_type == "attn":
         for name, seed in zip(("c_kv", "k_rope") if cfg.mla else ("k", "v"),
                               seeds):
-            cache[name][:, :, :s] = seed.to(cache[name].dtype)
+            cache[name] = primed(name, seed)
         cache["index"] = s
     elif cfg.block_type == "mamba2":
         cache["h"], cache["conv"] = seeds["h"], seeds["conv"]
         if cfg.hybrid_attn_every:
             ak, av = seeds["attn"]
-            cache["attn_k"][:, :, :s] = ak.to(cache["attn_k"].dtype)
-            cache["attn_v"][:, :, :s] = av.to(cache["attn_v"].dtype)
+            cache["attn_k"] = primed("attn_k", ak)
+            cache["attn_v"] = primed("attn_v", av)
             cache["index"] = s
     else:  # rwkv6
         cache.update(seeds)
@@ -103,7 +110,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor):
     """One token for every sequence.  tokens [B] -> (logits [B, V], cache)."""
-    x = params["embed"]["tok"][tokens][:, None, :]      # [B, 1, D]
+    x = layers.gather_rows(params["embed"]["tok"], tokens)[:, None, :]
     if cfg.block_type == "attn":
         x, cache = _decode_attn(cfg, params, cache, x)
     elif cfg.block_type == "mamba2":
@@ -115,7 +122,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 
 def _decode_attn(cfg, params, cache, x):
-    use_window, thetas = layer_flags(cfg)
+    use_window, thetas = layer_flags_np(cfg)
     idx = cache["index"]
     positions = torch.full((x.shape[0], 1), idx, dtype=torch.int32,
                            device=x.device)

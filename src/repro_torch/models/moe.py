@@ -15,10 +15,12 @@ drop a different token.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, pspec
 from ..configs.base import ModelConfig
 
 
@@ -47,6 +49,14 @@ def route(router: torch.Tensor, xg: torch.Tensor, k: int):
     return probs, top_p[..., :k], top_i[..., :k]
 
 
+def _experts(xe, w_gate, w_up, w_down):
+    """Each expert's SwiGLU over its slots: xe [g, E, C, D] -> [g, E, C, D]."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate)) \
+        * torch.einsum("gecd,edf->gecf", xe, w_up)
+    h = pspec.constrain(h, "batch", "experts", None, None)
+    return torch.einsum("gecf,efd->gecd", h, w_down)         # [g, E, C, D]
+
+
 def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 group_size: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar)."""
@@ -60,7 +70,11 @@ def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cap = max(1, int(gs * k / e * cfg.capacity_factor))
 
     xg = x.reshape(g, gs, d)
-    probs, top_p, top_i = route(p["router"], xg, k)
+    # under a mesh each rank routes its own tokens (DTensor would shard
+    # them over the model axis too, and lose the nesting in the backward)
+    probs, top_p, top_i = pspec.local(
+        functools.partial(route, k=k), p["router"], xg,
+        axes=((None, None), (0, 1)), out_axes=((0, 1),) * 3, point="router")
     gates = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # position of each (token, k) selection within its expert's capacity
@@ -76,10 +90,15 @@ def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     combine = (disp * gates.to(x.dtype)[..., None, None]).sum(dim=2)
 
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)        # [g, E, C, D]
-    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) \
-        * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # [g, E, C, D]
+    xe = pspec.constrain(xe, "batch", "experts", None, None)
+    # under a mesh each rank runs its own groups through its own experts
+    # (the FSDP-sharded weights gathered whole)
+    ye = pspec.local(_experts, xe, p["w_gate"], p["w_up"], p["w_down"],
+                     axes=((0, 1), (None, 0), (None, 0), (None, 0)),
+                     out_axes=((0, 1),), point="moe.experts")
+    ye = pspec.constrain(ye, "batch", "experts", None, None)
     y = torch.einsum("gsec,gecd->gsd", combine, ye).reshape(b, s, d)
+    y = pspec.constrain(y, "batch", None, None)
 
     # switch-style load-balance loss
     me = probs.mean(dim=(0, 1))                              # [E]

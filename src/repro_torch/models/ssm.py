@@ -10,12 +10,13 @@ no TF32 either).  Decode for both is O(1) per token on a small state.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, pspec
 from ..configs.base import ModelConfig
 
 
@@ -85,7 +86,7 @@ def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """
     b, s, d = x.shape
     hd = cfg.ssm_head_dim
-    proj = x @ p["in_proj"]
+    proj = pspec.constrain(x @ p["in_proj"], "batch", None, "ff")
     z, xbc, dt, d_in, n, ph = _split_proj(cfg, proj)
 
     if state is not None and s == 1:
@@ -103,9 +104,10 @@ def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         xbc = F.pad(xbc, (0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad), value=-20.0)
     sp = s + pad
-    xs = xbc[..., :d_in].reshape(b, sp, ph, hd)
-    bs = xbc[..., d_in:d_in + n]
-    cs = xbc[..., d_in + n:]
+    xs = pspec.constrain(pspec.split_heads(xbc[..., :d_in], ph, hd),
+                         "batch", None, "heads", None)
+    bs = pspec.constrain(xbc[..., d_in:d_in + n], "batch", None, None)
+    cs = pspec.constrain(xbc[..., d_in + n:], "batch", None, None)
 
     dt = F.softplus(dt.float() + p["dt_bias"])                  # [B,S,P]
     a = -torch.exp(p["a_log"])                                  # [P] (<0)
@@ -113,8 +115,12 @@ def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     h0 = state["h"] if state is not None else torch.zeros(
         (b, ph, n, hd), dtype=torch.float32, device=x.device)
-    y, h_last = _ssd_chunked(xs.float(), bs.float(), cs.float(), dt, la,
-                             h0, chunk=chunk)
+    # under a mesh each rank scans its own batch rows and heads
+    y, h_last = pspec.local(
+        functools.partial(_ssd_chunked, chunk=chunk), xs.float(),
+        bs.float(), cs.float(), dt, la, h0,
+        axes=((0, 2), (0, None), (0, None), (0, 2), (0, 2), (0, 1)),
+        out_axes=((0, 2), (0, 1)), point="ssd")
     y = y + p["d_skip"][None, None, :, None] * xs.float()
     if pad:
         y = y[:, :s]
@@ -262,9 +268,12 @@ def rwkv6_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     def mix(i):
         return x + (xs - x) * p["mu"][i].to(x.dtype)
-    r = (mix(0) @ p["w_r"]).reshape(b, s, h, hd)
-    k = (mix(1) @ p["w_k"]).reshape(b, s, h, hd)
-    v = (mix(2) @ p["w_v"]).reshape(b, s, h, hd)
+    r = pspec.constrain(pspec.split_heads(mix(0) @ p["w_r"], h, hd),
+                        "batch", None, "heads", None)
+    k = pspec.constrain(pspec.split_heads(mix(1) @ p["w_k"], h, hd),
+                        "batch", None, "heads", None)
+    v = pspec.constrain(pspec.split_heads(mix(2) @ p["w_v"], h, hd),
+                        "batch", None, "heads", None)
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(x_shift))).
     # The per-step log-decay is floored at 80/chunk so the chunked form's
     # exp(-cumsum) stays in f32 range; scan and chunked share the floor.
@@ -273,17 +282,19 @@ def rwkv6_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     wlog = p["w0"] + torch.tanh(mix(3).float() @ p["w_lora_a"]) \
         @ p["w_lora_b"]
     logw = -torch.clamp(torch.exp(wlog), max=floor)
-    w = torch.exp(logw).reshape(b, s, h, hd)             # decay in (0,1)
+    w = pspec.split_heads(torch.exp(logw), h, hd)       # decay in (0,1)
     g = F.silu(mix(4) @ p["w_g"])
 
     s0 = state["s"] if state is not None else torch.zeros(
         (b, h, hd, hd), dtype=torch.float32, device=x.device)
     rf, kf, vf = r.float(), k.float(), v.float()
-    if chunked and s > 1:
-        y, s_last = _wkv6_chunked(rf, kf, vf, w, p["u"], s0,
-                                  chunk=chunk_len)
-    else:
-        y, s_last = _wkv6_scan(rf, kf, vf, w, p["u"], s0)
+    wkv = (functools.partial(_wkv6_chunked, chunk=chunk_len)
+           if chunked and s > 1 else _wkv6_scan)
+    # under a mesh each rank runs the recurrence of its batch rows and heads
+    y, s_last = pspec.local(
+        wkv, rf, kf, vf, w, p["u"], s0,
+        axes=((0, 2),) * 4 + ((None, 0), (0, 1)),
+        out_axes=((0, 2), (0, 1)), point="wkv")
     y = y.reshape(b, s, d).to(x.dtype)
     y = layers.rms_norm(y, p["ln_x"], cfg.norm_eps) * g
     return y @ p["w_o"], {"s": s_last, "last": x[:, -1, :]}

@@ -20,6 +20,7 @@ rest.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Optional
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
-from . import attention, layers, moe, ssm
+from . import attention, layers, moe, pspec, ssm
 from ..configs.base import ModelConfig
 from ..bitset import resolve_device
 
@@ -91,8 +92,10 @@ def layer(tree: dict, l: int) -> dict:
 
 
 # -------------------------------------------------------- per-layer flags
-def layer_flags(cfg: ModelConfig):
-    """(use_window [L] bool, theta [L] f32) for gemma3-style striping."""
+def layer_flags_np(cfg: ModelConfig):
+    """(use_window [L] bool, theta [L] f32) for gemma3-style striping, as
+    numpy arrays: the layer loops read them as Python values, which the
+    dry-run's fake tensors could not give."""
     l = cfg.n_layers
     if cfg.local_per_global:
         # pattern L,L,L,L,L,G repeating (last of each group is global)
@@ -104,7 +107,13 @@ def layer_flags(cfg: ModelConfig):
             else np.zeros(l, dtype=bool)
     theta = np.where(is_global, cfg.rope_theta_global or cfg.rope_theta,
                      cfg.rope_theta).astype(np.float32)
-    return torch.from_numpy(~is_global), torch.from_numpy(theta)
+    return ~is_global, theta
+
+
+def layer_flags(cfg: ModelConfig):
+    """``layer_flags_np`` as tensors."""
+    use_window, theta = layer_flags_np(cfg)
+    return torch.from_numpy(use_window), torch.from_numpy(theta)
 
 
 # --------------------------------------------------------------- forward
@@ -124,6 +133,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None, :].repeat(b, 1)
     x = layers.embed(params["embed"], tokens, media, cfg.n_media_tokens)
+    x = pspec.constrain(x, "batch", "seq", "embed")
     rm = functools.partial(_maybe_remat, remat=remat, policy=remat_policy)
     if cfg.block_type == "attn":
         x, aux, seeds = _attn_stack(cfg, params, x, positions, rm,
@@ -135,7 +145,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x, aux, seeds = _rwkv_stack(cfg, params, x, rm, collect_cache,
                                     rwkv_chunked)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(params["embed"], x), aux, seeds
+    logits = layers.unembed(params["embed"], x)
+    logits = pspec.constrain(logits, "batch", "seq", "vocab")
+    return logits, aux, seeds
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -149,11 +161,27 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _maybe_remat(fn, *, remat: bool, policy: str = ""):
     if not remat:
         return fn
-    kw = {}
-    if policy == "dots":
-        kw["context_fn"] = functools.partial(
-            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+    mesh, mapping = pspec.get_mesh(), pspec.get_mapping()
+    if policy != "dots" and mesh is None:
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+    def context_fn():
+        fwd, rec = (ckpt.create_selective_checkpoint_contexts(_save_matmuls)
+                    if policy == "dots" else (contextlib.nullcontext(),
+                                              contextlib.nullcontext()))
+        if mesh is None:
+            return fwd, rec
+        # the recompute may run on an autograd device thread: the mesh,
+        # its mapping and DTensor's implicit replication go with it
+        return fwd, _both(rec, pspec.use_mesh(mesh, mapping))
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
 
 
 def _stack_seeds(seeds: list):
@@ -163,8 +191,17 @@ def _stack_seeds(seeds: list):
     return tuple(torch.stack(t) for t in zip(*seeds))
 
 
+def _residual(x, y):
+    """``x + y`` inside a block, constrained like a block's output.  The
+    reference's GSPMD reduces the partial sums of a row-parallel product
+    where the next norm reads them, and those of the gradient where the
+    product before takes it; DTensor would carry both on, and every model
+    rank would run the next product whole."""
+    return pspec.constrain(x + y, "batch", "seq", "embed")
+
+
 def _attn_stack(cfg, params, x, positions, rm, collect_cache, q_chunk):
-    use_window, thetas = layer_flags(cfg)
+    use_window, thetas = layer_flags_np(cfg)
     blocks = params["blocks"]
 
     def body(x, l):
@@ -178,13 +215,14 @@ def _attn_stack(cfg, params, x, positions, rm, collect_cache, q_chunk):
                 blk["attn"], cfg, h, positions, window=cfg.sliding_window,
                 use_window=bool(use_window[l]), theta=float(thetas[l]),
                 q_chunk=q_chunk)
-        x = x + a
+        x = _residual(x, a)
         h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
         if cfg.is_moe:
             f, a_loss = moe.moe_forward(blk["ffn"], cfg, h)
         else:
             f, a_loss = layers.swiglu(blk["ffn"], h), None
-        return x + f, a_loss, (kv if collect_cache else None)
+        x = pspec.constrain(x + f, "batch", "seq", "embed")
+        return x, a_loss, (kv if collect_cache else None)
 
     body = rm(body)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -205,16 +243,17 @@ def _mamba_stack(cfg, params, x, positions, rm, collect_cache, q_chunk):
         blk = layer(blocks, l)
         h = layers.rms_norm(x, blk["ln"], cfg.norm_eps)
         y, st = ssm.mamba2_forward(blk["mixer"], cfg, h)
-        return x + y, (st if collect_cache else None)
+        return (pspec.constrain(x + y, "batch", "seq", "embed"),
+                st if collect_cache else None)
 
     def shared_attn(x):
         shared = params["shared"]
         h = layers.rms_norm(x, shared["ln_a"], cfg.norm_eps)
         a, kv = attention.gqa_forward(shared["attn"], cfg, h, positions,
                                       q_chunk=q_chunk)
-        x = x + a
+        x = _residual(x, a)
         h = layers.rms_norm(x, shared["ln_f"], cfg.norm_eps)
-        return x + layers.swiglu(shared["ffn"], h), kv
+        return _residual(x, layers.swiglu(shared["ffn"], h)), kv
 
     mamba_body = rm(mamba_body)
     m_seeds, a_seeds = [], []
@@ -241,12 +280,12 @@ def _rwkv_stack(cfg, params, x, rm, collect_cache, chunked):
         blk = layer(blocks, l)
         h = layers.rms_norm(x, blk["ln1"], cfg.norm_eps)
         y, st = ssm.rwkv6_time_mix(blk["tm"], cfg, h, chunked=chunked)
-        x = x + y
+        x = _residual(x, y)
         h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
         y, last_cm = ssm.rwkv6_channel_mix(blk["cm"], cfg, h)
         seed = ({"s": st["s"], "last_tm": st["last"], "last_cm": last_cm}
                 if collect_cache else None)
-        return x + y, seed
+        return pspec.constrain(x + y, "batch", "seq", "embed"), seed
 
     body = rm(body)
     seeds = []

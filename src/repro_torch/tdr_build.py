@@ -110,6 +110,14 @@ class TDRIndex:
             self._vtx_packed = bitset.np_to_words(self.vtx_words, self.device)
         return self._vtx_packed
 
+    @property
+    def vtx_bit_rows(self) -> np.ndarray:
+        """Unpacked bool [V, vtx_bits] hash rows (compat/debug view only —
+        the build and query hot paths never materialize this)."""
+        return np.unpackbits(
+            self.vtx_words.view(np.uint8), axis=1,
+            bitorder="little")[:, :self.cfg.vtx_bits].astype(bool)
+
     def engine(self, backend: str | None = None,
                config: "engine_mod.EngineConfig | None" = None
                ) -> "engine_mod.Engine":
@@ -120,6 +128,10 @@ class TDRIndex:
             self._engines[key] = engine_mod.make_engine(
                 self.graph, backend=key, config=config, device=self.device)
         return self._engines[key]
+
+    def adj_packed(self, *, reverse: bool = False) -> torch.Tensor:
+        """Packed adjacency bit-matrix of the engine (cached)."""
+        return self.engine().adjacency(reverse=reverse)
 
     def plane_specs(self) -> dict:
         """Every packed plane of the index with its valid-bit width:

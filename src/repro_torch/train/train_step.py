@@ -59,8 +59,7 @@ def make_train_step(cfg: ModelConfig,
         else:
             mb = tokens.shape[0] // n_microbatches
             grads = pytree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(n_microbatches):
                 rows = slice(i * mb, (i + 1) * mb)

@@ -368,3 +368,45 @@ def test_index_caches_engines_and_adjacency():
         np.testing.assert_array_equal(
             np.flatnonzero(bits[u][:g.n_vertices]),
             np.unique(g.successors(u)))
+
+
+# -------------------------------------- twins of test_engine.py's surfaces
+def test_index_arrays_are_packed_words():
+    """No [V, nbits] bool plane at rest: every index array is packed int32
+    words (the reference's uint32 bits), beside the host uint32 rows."""
+    g = G.erdos_renyi(60, 2.0, 4, seed=0)
+    cfg = tdr_build.TDRConfig(**CFG)
+    idx = tdr_build.build_index(g, cfg, device="cpu")
+    for f in ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in"):
+        assert getattr(idx, f).dtype == torch.int32, f
+    assert idx.vtx_words.dtype == np.uint32
+    assert idx.h_vtx.shape[-1] == bitset.n_words(cfg.vtx_bits)
+    assert idx.adj_packed().dtype == torch.int32
+    assert idx.adj_packed() is idx.engine().adjacency()
+    assert idx.adj_packed(reverse=True) is idx.engine().adjacency(
+        reverse=True)
+
+
+def test_vtx_packed_cached_plainly():
+    g = G.erdos_renyi(20, 1.5, 3, seed=0)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    p1 = idx.vtx_packed
+    assert idx.vtx_packed is p1                 # cached attribute, no hack
+    np.testing.assert_array_equal(
+        bitset.words_to_np(p1), bitset.pack_bits_np(idx.vtx_bit_rows))
+    rg = RG.Graph(g.n_vertices, g.n_labels, g.indptr, g.indices, g.labels)
+    ridx = RB.build_index(rg, RB.TDRConfig(**CFG))
+    np.testing.assert_array_equal(idx.vtx_bit_rows, ridx.vtx_bit_rows)
+
+
+def test_words_intersect_matches_reference():
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2 ** 32, (50, 3), dtype=np.uint64).astype(np.uint32)
+    b = a & rng.integers(0, 2 ** 32, (50, 3), dtype=np.uint64).astype(
+        np.uint32) & (rng.random((50, 1)) < 0.5).astype(np.uint32) * 0xFFFF
+    from repro.core import bitset as rbitset
+    want = np.asarray(rbitset.words_intersect(a, b))
+    got = bitset.words_intersect(bitset.np_to_words(a, "cpu"),
+                                 bitset.np_to_words(b, "cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()

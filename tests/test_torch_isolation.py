@@ -44,7 +44,11 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.train.train_step", "repro_torch.data",
            "repro_torch.data.pipeline", "repro_torch.checkpoint",
            "repro_torch.checkpoint.checkpointer",
-           "repro_torch.launch.train")
+           "repro_torch.launch.train", "repro_torch.models.pspec",
+           "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+           "repro_torch.launch.dryrun", "repro_torch.launch.perf",
+           "repro_torch.utils", "repro_torch.utils.cost",
+           "repro_torch.utils.roofline", "repro_torch.utils.report")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                        r"|from\s+repro(\.|\s)(?!_))", re.M)
 
@@ -225,3 +229,23 @@ def test_sharded_entry_points_refuse_the_cpu_by_default(entry):
         assert call(device="cpu").device == torch.device("cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("entry", ["make_production_mesh", "run_cell",
+                                   "run_tdr_cell", "perf"])
+def test_mesh_entry_points_refuse_the_cpu_by_default(entry):
+    """The production mesh and the dry-run default to the card; the mesh
+    is made on the CPU when asked to (and then wants its 256 ranks)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.launch import dryrun, mesh, perf
+    call = {"make_production_mesh": mesh.make_production_mesh,
+            "run_cell": lambda: dryrun.run_cell(
+                "phi3-mini-3.8b", "decode_32k", "single"),
+            "run_tdr_cell": lambda: dryrun.run_tdr_cell("single"),
+            "perf": lambda: perf.main(["--iter", "rwkv-dp"])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    if entry == "make_production_mesh":
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
+            mesh.make_production_mesh(device="cpu")

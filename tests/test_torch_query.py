@@ -396,3 +396,23 @@ def test_segment_backend_launches_no_kernel():
         idx, _patterns(pattern, _specs(np.random.default_rng(1), 40, 4, 10),
                        4), backend="segment", device="cpu")
     assert dict(ops.KERNEL_LAUNCHES) == before
+
+
+def test_lcr_translation_matches_oracle():
+    """The twin of ``tests/test_tdr.py``'s: LCR through the pattern
+    engine against the port's own LCR oracle, which agrees with the
+    reference's."""
+    g = G.erdos_renyi(40, 2.0, 4, seed=9)
+    rg = RG.Graph(g.n_vertices, g.n_labels, g.indptr, g.indices, g.labels)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    rng = np.random.default_rng(1)
+    queries = []
+    for _ in range(20):
+        u, v = int(rng.integers(40)), int(rng.integers(40))
+        allowed = rng.choice(4, size=2, replace=False).tolist()
+        queries.append((u, v, allowed))
+    got = lcr.answer_lcr_batch(idx, queries, device="cpu")
+    want = [dfs_baseline.answer_lcr(g, u, v, set(a)) for u, v, a in queries]
+    assert got.tolist() == want
+    assert want == [RD.answer_lcr(rg, u, v, set(a)) for u, v, a in queries]
+    assert any(want) and not all(want)
