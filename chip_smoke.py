@@ -177,8 +177,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    12 (c)'s 1e-6 (0 expected); ms per step after the first, tokens/s and
    peak memory of both, DTensor's overhead, phase 12's step beside them.  (b) One meshed
    ``decode_step`` after a 256-token prefill against the unmeshed one
-   (within 12's 0.125; 0 expected).  (c) A subprocess (started first, so
-   it runs beside (a) and (b)) runs ``python -m
+   (within 12's 0.125; 0 expected).  (c) A subprocess runs ``python -m
    repro_torch.launch.dryrun`` for phi3-mini-3.8b x train_4k and x
    decode_32k and for ``tdr-graph`` on the single-pod 16x16 mesh of
    fake ranks on the card: per-rank peak memory, FLOPs, HBM and
@@ -188,6 +187,33 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    ratio to them.  With four or more cards, (a) also runs on a 2x2 mesh
    of four nccl rank processes of this script, one card each (a figure,
    not a check).
+14. The last of the JAX package's surface: the retained one-directional
+   executor and the 2-axis TDR meshes.  (a) ``answer_batch(exact_mode=
+   "legacy")`` on phase 1's 512 queries on ``matmul`` (launch counts set
+   to 0 just before and read just after; B1 must have run, once per
+   label class per round on the full graph's reverse class stack) and
+   on ``segment``: answers equal phase 1's and the rounds agree; B1 on
+   one legacy frontier ``[32768, 32]`` against its plain version; a
+   profiled run for the idle share.  (b) Four rank processes of this
+   script (``--tdr2d-rank R 4 DIR``; ``nccl`` with a card each when
+   there are four cards, else ``gloo`` on ``cuda:0``) run the 1-D
+   ``LoweredClosure`` and the 2-D ``LoweredClosure2D`` of the smoke
+   graph's 256-bit seeds at the vtx x word layouts 4x1, 2x2 and 1x4, at
+   R = 2 and at phase 1's fixpoint round count; each rank's 2-D block
+   equals ``seeds | the 1-D result`` by sha256, and the 1-D result at the
+   fixpoint equals phase 1's ``r_vtx``.  Prints per layout the bytes
+   gathered per round per rank and the ms per round.  (c) One
+   subprocess records the ``tdr-1d``, ``tdr-2d`` and ``tdr-2d-w4`` perf iterations
+   (``launch/perf.py``) on 256 fake ranks of the card: their all-gather
+   bytes per rank must be exactly 22,658,949,120, 2,832,353,408 and
+   5,664,711,168.  ``python3 tools/chip_tdr2d.py`` runs phase 1 and this
+   phase alone.
+
+The (c) subprocesses of phases 13 and 14 trace fake ranks on the host and
+do no work on the card, so the run starts both first and they run beside
+phases 1-13 (one host core each); their phases read and check their
+records.  Run alone (``tools/chip_mesh.py``, ``tools/chip_tdr2d.py``), a
+phase starts its own beside its (a) and (b).
 
 Prints the card and its power limit, timings, a JSON line of per-kernel
 numbers and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -257,6 +283,14 @@ MESH_PROMPT = 256               # mesh phase (b): prompt before the decode
 MESH_STEP_TOL = 1e-6           # mesh phase (a): 12 (c)'s rerun bound
 MESH_RANKS = 4                 # mesh phase: 2 x 2 ranks with four cards
 DRYRUN_TIMEOUT_S = 600         # mesh phase (c): the dry-run subprocess
+TDR2D_RANKS = 4                # 2-D phase: ranks (4 x 8,192 rows)
+TDR2D_LAYOUTS = ((4, 1), (2, 2), (1, 4))   # (vtx, word) shards
+TDR2D_TIMEOUT_S = 300          # 2-D phase: process group and wait
+# 2-D phase (c): each perf iteration's counted gather bytes per rank at
+# configs.TDR_GRAPH on 256 fake ranks: (rounds + 1) x v_pad x W/ws x 4
+PERF_GATHER_BYTES = {"tdr-1d": 22_658_949_120, "tdr-2d": 2_832_353_408,
+                     "tdr-2d-w4": 5_664_711_168}
+PERF_TIMEOUT_S = 300           # 2-D phase (c): the perf subprocesses
 SHARD_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
                 "exact_jobs", "exact_qids", "plan_lookups", "plan_misses",
                 "corridor_active", "corridor_total", "compacted_chunks",
@@ -1365,12 +1399,13 @@ def shard_rank(rank: int, world: int, tmp: str) -> int:
     return 1 if bad else 0
 
 
-def rank_devices(torch) -> tuple[str, list[str]]:
-    """Phase 11's backend and each rank's device: ``nccl`` with a card
-    per rank when there are enough cards, else ``gloo`` on ``cuda:0``."""
-    if torch.cuda.device_count() >= N_RANKS:
-        return "nccl", [f"cuda:{r}" for r in range(N_RANKS)]
-    return "gloo", ["cuda:0"] * N_RANKS
+def rank_devices(torch, n: int = N_RANKS) -> tuple[str, list[str]]:
+    """The backend and each rank's device for ``n`` rank processes:
+    ``nccl`` with a card per rank when there are enough cards, else
+    ``gloo`` on ``cuda:0`` (NCCL refuses two ranks on one device)."""
+    if torch.cuda.device_count() >= n:
+        return "nccl", [f"cuda:{r}" for r in range(n)]
+    return "gloo", ["cuda:0"] * n
 
 
 def rank_command(rank: int, tmp: str) -> list[str]:
@@ -1733,6 +1768,58 @@ def _timed_steps(torch, step_fn, state, batch, n: int):
     return state, losses, times, torch.cuda.max_memory_allocated()
 
 
+class Background:
+    """A host-only subprocess (fake ranks, no card work) that a phase
+    starts, or that the smoke run starts early so that it runs beside the
+    phases before the one that reads it.  Its output goes to ``out``, its
+    log to ``log``; ``close`` stops it if it still runs."""
+
+    def __init__(self, cmd: list[str], out: Path, log: Path):
+        import os
+        root = Path(__file__).resolve().parent
+        (root / "build").mkdir(exist_ok=True)
+        self.out, self.log = out, log
+        out.unlink(missing_ok=True)   # a perf record merges into a file
+        self._log_f = open(log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, cwd=root, stdout=self._log_f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                     OMP_NUM_THREADS="1"))
+
+    def wait(self, timeout: float, what: str) -> str | None:
+        """Wait for the process; a failure message, or None."""
+        try:
+            self.proc.wait(timeout=max(
+                1.0, timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            return f"{what} ran past {timeout} s"
+        if self.proc.returncode:
+            return f"{what} failed: " + "\n".join(
+                self.log.read_text().strip().splitlines()[-8:])
+        return None
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._log_f.close()
+
+
+def start_dryrun() -> Background:
+    """Phase 13 (c)'s dry-run subprocess."""
+    build = Path(__file__).resolve().parent / "build"
+    out = build / "dryrun_smoke.json"
+    return Background(dryrun_command(out), out, build / "dryrun_smoke.log")
+
+
+def start_perf() -> Background:
+    """Phase 14 (c)'s perf subprocess."""
+    build = Path(__file__).resolve().parent / "build"
+    out = build / "perf_tdr.json"
+    return Background(perf_command(out), out, build / "perf_tdr.log")
+
+
 def dryrun_command(out: Path) -> list[str]:
     """Phase 13 (c): the port's dry-run of the named cells on 256 fake
     ranks of the card."""
@@ -1881,39 +1968,23 @@ def mesh_figure_2x2(torch) -> None:
           f"{fig['collective_counts']}, {fig['flops']:.4e} FLOP")
 
 
-def mesh_phase(torch, lm_figures: dict) -> str | None:
+def mesh_phase(torch, lm_figures: dict,
+               dry: Background | None = None) -> str | None:
     """Phase 13: the mesh layer on the card and the fake-rank dry-run
-    (module docstring, item 13)."""
-    import os
-    root = Path(__file__).resolve().parent
-    (root / "build").mkdir(exist_ok=True)
-    out = root / "build" / "dryrun_smoke.json"
-    log = root / "build" / "dryrun_smoke.log"
-    env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    with open(log, "w") as log_f:
-        dry = subprocess.Popen(dryrun_command(out), cwd=root, env=env,
-                               stdout=log_f, stderr=subprocess.STDOUT)
-        try:
-            msg = mesh_card(torch, lm_figures)
-            if msg:
-                return msg
-            try:
-                dry.wait(timeout=DRYRUN_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                return (f"mesh phase (c): the dry-run ran past "
-                        f"{DRYRUN_TIMEOUT_S} s")
-        finally:
-            if dry.poll() is None:
-                dry.kill()
-                dry.wait()
-    print(f"mesh (c) dry-run subprocess: {time.perf_counter() - t0:.1f} s "
-          f"from its start, beside (a) and (b)")
-    if dry.returncode:
-        return ("mesh phase (c): the dry-run failed: "
-                + "\n".join(log.read_text().strip().splitlines()[-8:]))
-    data = json.loads(out.read_text())
+    (module docstring, item 13).  ``dry`` is the dry-run subprocess when
+    the smoke run started it early; else it starts here, beside (a) and
+    (b)."""
+    dry = dry or start_dryrun()
+    try:
+        msg = mesh_card(torch, lm_figures) or dry.wait(
+            DRYRUN_TIMEOUT_S, "mesh phase (c): the dry-run")
+        if msg:
+            return msg
+    finally:
+        dry.close()
+    print(f"mesh (c) dry-run subprocess: done within "
+          f"{time.perf_counter() - dry.t0:.1f} s of its start")
+    data = json.loads(dry.out.read_text())
     if data["failures"]:
         return f"mesh phase (c): dry-run failures {data['failures']}"
     msg = check_dryrun(data["results"])
@@ -2040,6 +2111,315 @@ def mesh_card(torch, lm_figures: dict) -> str | None:
     return None
 
 
+def tdr2d_rank(rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 14 (b) (``chip_smoke.py --tdr2d-rank R N DIR``):
+    joins the group through a file store in ``DIR``, runs the 1-D
+    ``LoweredClosure`` and the 2-D ``LoweredClosure2D`` at every layout of
+    ``TDR2D_LAYOUTS`` on the smoke graph's 256-bit seeds at R = 2 and at
+    the fixpoint's rounds, checks its 2-D block against ``seeds | 1-D``
+    by digest, and prints one JSON line of its figures.  Exits non-zero
+    on a mismatch."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import bitset, distributed, engine, graph, tdr_build
+
+    spec = json.loads((Path(tmp) / "spec.json").read_text())
+    dev = torch.device(spec["devices"][rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        spec["backend"], store=dist.FileStore(str(Path(tmp) / "store"),
+                                              world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TDR2D_TIMEOUT_S))
+    mesh = distributed.ShardMesh(device=dev)
+    g = graph.erdos_renyi(N_VERTICES, AVG_DEGREE, N_LABELS, seed=0)
+    cfg = tdr_build.TDRConfig()
+    _, _, disc = tdr_build.dfs_intervals(g)
+    words = tdr_build._vertex_bit_words(cfg, disc)          # [V, 8]
+    bad = [] if digest(words) == spec["seeds"] else ["seed words"]
+    v_n, nbits = g.n_vertices, cfg.vtx_bits
+    out = {"rank": rank, "device": str(dev), "runs": []}
+
+    def edges(ed, s):
+        return (torch.from_numpy(ed.local[s].astype(np.int64)).to(dev),
+                torch.from_numpy(ed.remote[s].astype(np.int64)).to(dev),
+                torch.from_numpy(ed.valid[s]).to(dev))
+
+    def sync_time(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    seeds = bitset.np_to_words(words, dev)
+    v_pad1, ed1 = distributed.partition_graph(g, world)
+    per1 = v_pad1 // world
+    rows1 = bitset.np_to_words(distributed._pad_to(words, v_pad1)[
+        rank * per1:(rank + 1) * per1], dev)
+    lows = {}
+    for v_sh, w_sh in TDR2D_LAYOUTS:   # every rank makes every group
+        v_pad, ed = distributed.partition_graph(g, v_sh)
+        low = distributed.lower_distributed_closure_2d(
+            mesh, v_n, ed.local.shape[1], nbits, 0, word_shards=w_sh)
+        vi, wi = low.coords
+        cols = slice(wi * low.per_w, (wi + 1) * low.per_w)
+        rows = distributed._pad_to(words, v_pad)[
+            vi * low.per_v:(vi + 1) * low.per_v, cols]
+        lows[(v_sh, w_sh)] = (low, v_pad, cols,
+                              bitset.np_to_words(rows, dev),
+                              edges(ed, vi))
+    for rounds in (2, spec["fix_rounds"]):
+        low1 = distributed.lower_distributed_closure(
+            mesh, v_n, ed1.local.shape[1], nbits, rounds)
+        r1, sec1 = sync_time(lambda: low1(rows1, *edges(ed1, rank)))
+        full1 = engine.all_gather_words(r1, mesh)[:v_n]
+        if rounds == spec["fix_rounds"] and digest(full1) != spec["closure"]:
+            bad.append(f"1-D closure at R={rounds} is not the fixpoint")
+        want = seeds | full1
+        out["runs"].append({"layout": "1-D", "rounds": rounds,
+                            "s": sec1, "gather_bytes": v_pad1 * 8 * 4})
+        for (v_sh, w_sh), (low, v_pad, cols, rows, ed_t) in lows.items():
+            low = dataclasses.replace(low, rounds=rounds)
+            got, sec = sync_time(lambda: low(rows, *ed_t))
+            vi = low.coords[0]
+            exp = torch.cat([want, want.new_zeros(
+                (v_pad - v_n, want.shape[1]))])[
+                vi * low.per_v:(vi + 1) * low.per_v, cols]
+            if digest(got) != digest(exp):
+                bad.append(f"2-D {v_sh}x{w_sh} at R={rounds}")
+            out["runs"].append({
+                "layout": f"{v_sh}x{w_sh}", "rounds": rounds, "s": sec,
+                "gather_bytes": v_pad * low.per_w * 4})
+        del r1, full1, want
+    dist.barrier()
+    out["bad"] = bad
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 1 if bad else 0
+
+
+def tdr2d_command(rank: int, world: int, tmp: str) -> list[str]:
+    """The command line of one phase-14 rank: this script again."""
+    return [sys.executable, str(Path(__file__).resolve()), "--tdr2d-rank",
+            str(rank), str(world), tmp]
+
+
+def perf_command(out: Path) -> list[str]:
+    """Phase 14 (c): the ``tdr-*`` perf iterations on 256 fake ranks of
+    the card, in one process (one fake group and production mesh), each
+    recorded into ``out`` as ``python -m repro_torch.launch.perf --iter
+    IT --out OUT`` records it."""
+    code = ("from repro_torch.launch import perf\n"
+            f"for it in {tuple(PERF_GATHER_BYTES)!r}:\n"
+            "    perf.record(it, perf.run_tdr_variant("
+            f"*perf.TDR_ITERATIONS[it]), {str(out)!r})\n")
+    return [sys.executable, "-c", code]
+
+
+def legacy_phase(torch, g, idx, queries, answers, record) -> str | None:
+    """Phase 14 (a): ``answer_batch(exact_mode="legacy")`` on phase 1's
+    queries, on ``matmul`` (launch counts set to 0 just before and read
+    just after) and on ``segment``; B1 on one legacy frontier against its
+    plain version; a profiled run for the idle share."""
+    from repro_torch import bitset, tdr_query
+    from repro_torch.kernels import ops, ref
+    step = ops.frontier_step
+    seen = {"n": 0}
+
+    def spy(a, x):   # observes one call's operands; computes nothing
+        seen["n"] += 1
+        if seen["n"] <= SPY_CALL and bool((a != 0).any()):
+            seen["a"], seen["x"] = a, x     # a class that has edges
+        return step(a, x)
+
+    runs = {}
+    for backend in ("matmul", "segment"):
+        st = tdr_query.QueryStats()
+        torch.cuda.synchronize()
+        if backend == "matmul":
+            ops.frontier_step = spy
+        ops.KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        try:
+            ans = tdr_query.answer_batch(idx, queries, backend=backend,
+                                         exact_mode="legacy",
+                                         exact_chunk=EXACT_CHUNK, stats=st)
+            torch.cuda.synchronize()
+        finally:
+            ops.frontier_step = step
+        wall = time.perf_counter() - t0
+        runs[backend] = (ans, st, dict(ops.KERNEL_LAUNCHES))
+        print(f"legacy answer_batch[{backend}]: {wall:.3f} s, "
+              f"{len(queries) / wall:.1f} queries/s; phase-2 jobs "
+              f"{st.exact_jobs} in {len(st._round_parts)} full-graph chunks, "
+              f"rounds {st.exact_rounds} ({st._round_parts}); launches "
+              f"{runs[backend][2]}")
+        if not np.array_equal(ans, answers):
+            return f"legacy answers on {backend} differ from phase 1's"
+    if runs["matmul"][1].exact_rounds != runs["segment"][1].exact_rounds:
+        return "legacy rounds differ between matmul and segment"
+    n_b1 = runs["matmul"][2].get("bitset_matmul", 0)
+    if n_b1 <= 0:
+        return "bitset_matmul was not launched by the legacy executor"
+    wall, busy, top, _ = profile(torch, lambda: tdr_query.answer_batch(
+        idx, queries, exact_mode="legacy", exact_chunk=EXACT_CHUNK))
+    print(f"profile legacy answer_batch: wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s ({100 * (1 - busy / wall):.1f}% idle); top device "
+          "time: " + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+    if "a" not in seen:
+        return "no legacy frontier reached bitset_matmul"
+    a, x = seen["a"], seen["x"]
+    m, kw = a.shape
+    x = ref.pad_k(x, kw * 32).contiguous()
+    a_bits = int(bitset.popcount(a).sum())
+    w = x.shape[1]
+    a_unp = ref.unpacked_bf16(a, kw * 32)
+    x_unp = ref.unpacked_bf16(x, w * 32)
+    print(f"bitset_matmul[legacy]: class matrix {tuple(a.shape)} with "
+          f"{a_bits} set bits, subset-state frontier {tuple(x.shape)} with "
+          f"{int((x != 0).sum())} non-zero words (the last class with edges "
+          f"in the first {SPY_CALL} of {seen['n']} calls)")
+    good = record(
+        f"bitset_matmul[legacy,W={w}]",
+        "src/repro_torch/kernels/csrc/bitset_matmul.cu",
+        "src/repro/kernels/bitset_matmul.py:45", ops.frontier_step(a, x),
+        ref.bitset_matmul_ref(a, x), lambda: ops.frontier_step(a, x),
+        lambda: ref.bitset_matmul_ref(a, x), (m * kw + x.numel() + m * w) * 4,
+        m * kw + 2 * a_bits * w, lambda: torch.matmul(a_unp, x_unp),
+        n_launches=n_b1)
+    del a_unp, x_unp
+    return None if good else "bitset_matmul disagrees on a legacy frontier"
+
+
+def tdr2d_phase(torch, g, idx, queries, answers, record,
+                perf: Background | None = None) -> str | None:
+    """Phase 14: the legacy executor (a), the 2-D closure on
+    ``TDR2D_RANKS`` rank processes (b) and the ``tdr-*`` perf iterations
+    on 256 fake ranks of the card (c).  ``perf`` is (c)'s subprocess when
+    the smoke run started it early; else it starts here, beside (a) and
+    (b).  Returns a failure message, or None."""
+    import os
+    import shutil
+    import tempfile
+    root = Path(__file__).resolve().parent
+    perf = perf or start_perf()
+    procs = []
+    tmp = tempfile.mkdtemp(prefix="tdr2d_", dir=root / "build")
+    try:
+        msg = legacy_phase(torch, g, idx, queries, answers, record)
+        if msg:
+            return f"2-D phase (a): {msg}"
+
+        # (b) the 2-D closure on rank processes
+        backend, devices = rank_devices(torch, TDR2D_RANKS)
+        print(f"tdr2d: {TDR2D_RANKS} ranks on {backend}, devices {devices}")
+        spec = {"backend": backend, "devices": devices,
+                "seeds": digest(idx.vtx_words), "closure": digest(idx.r_vtx),
+                "fix_rounds": idx.fixpoint_rounds}
+        (Path(tmp) / "spec.json").write_text(json.dumps(spec))
+        renv = dict(os.environ, OMP_NUM_THREADS=str(
+            max(1, (os.cpu_count() or 1) // (TDR2D_RANKS + 4))))
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(tdr2d_command(r, TDR2D_RANKS, tmp),
+                                  env=renv, stdout=subprocess.PIPE, text=True)
+                 for r in range(TDR2D_RANKS)]
+        deadline = time.monotonic() + TDR2D_TIMEOUT_S
+        while True:   # until every rank exits, or one fails
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            if time.monotonic() > deadline:
+                return f"2-D phase (b): a rank ran past {TDR2D_TIMEOUT_S} s"
+            time.sleep(0.2)
+        wall = time.perf_counter() - t1
+        failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+        if failed:
+            r = failed[0]
+            lines = procs[r].stdout.read().strip().splitlines()
+            why = json.loads(lines[-1])["bad"] if lines else "no report"
+            return f"2-D phase (b): rank {r} exited {codes[r]}: {why}"
+        reports = [json.loads(p.stdout.read().strip().splitlines()[-1])
+                   for p in procs]
+        for rep in reports:
+            print(f"tdr2d rank {rep['rank']} ({rep['device']}): " + "; ".join(
+                f"{run['layout']} R={run['rounds']} {run['s'] * 1e3:.1f} ms "
+                f"({run['s'] * 1e3 / (run['rounds'] + 1):.2f} ms/round, "
+                f"{run['gather_bytes']} B gathered/round)"
+                for run in rep["runs"]))
+        print(f"tdr2d: {TDR2D_RANKS} ranks in {wall:.3f} s wall (spawn to "
+              f"exit); R = 2 and R = {idx.fixpoint_rounds} (the fixpoint); "
+              f"every layout's block equals seeds | the 1-D closure")
+
+        # (c) the perf iterations' records
+        msg = perf.wait(PERF_TIMEOUT_S, "2-D phase (c): the iterations")
+        if msg:
+            return msg
+        recs = json.loads(perf.out.read_text())["iterations"]
+        for it in PERF_GATHER_BYTES:
+            rec = recs[it]
+            h, ro, m = rec["hlo"], rec["roofline"], rec["memory"]
+            print(f"perf {it} on 256 fake ranks of the card: "
+                  f"{h['collective_bytes_per_chip']:.0f} gather B, "
+                  f"{h['hbm_bytes_per_chip']:.4e} HBM B per rank; roofline "
+                  f"memory {ro['memory_s']:.6f} s, collective "
+                  f"{ro['collective_s']:.6f} s, dominant {ro['dominant']}; "
+                  f"temp {m['temp_gb']:.3f} GB, inputs {m['argument_gb']:.3f}"
+                  f" GB; trace {rec['compile_s']} s")
+            if h["collective_bytes_per_chip"] != PERF_GATHER_BYTES[it] or \
+                    dict(h["collectives"]) != {
+                        "all-gather": PERF_GATHER_BYTES[it]}:
+                return (f"2-D phase (c): {it} gathers "
+                        f"{h['collectives']}, want {PERF_GATHER_BYTES[it]}")
+        print(f"tdr2d (c): the three perf iterations done within "
+              f"{time.perf_counter() - perf.t0:.1f} s of their start")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        perf.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return None
+
+
+def make_record(torch, rows: list, launches: dict):
+    """A function that checks one kernel call against its plain version
+    (tolerance 0), times the kernel, the plain version and the library
+    yardstick, appends the kernel's row of the ``kernels`` JSON line to
+    ``rows`` and returns whether the two agreed.  A row's launches are
+    ``n_launches`` or the main path's count of its kernel in
+    ``launches``."""
+    def record(name, source, replaces, got, want, k_fn, p_fn, nbytes, nops,
+               lib_fn=None, n_launches=None, err=None):
+        err = words_err(torch, got, want) if err is None else err
+        ms = time_ms(torch, k_fn, KERNEL_REPS)
+        call_ms = time_ms(torch, k_fn, KERNEL_REPS, queued=False)
+        plain = time_ms(torch, p_fn, PLAIN_REPS)
+        lib_ms = time_ms(torch, lib_fn, PLAIN_REPS) if lib_fn else None
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = nops / INT32_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": n_launches if n_launches is not None
+            else launches.get(name.split("[")[0], 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": lib_ms})
+        print(f"{name}: max_abs_err={err} ms={ms:.4f} (one call with host "
+              f"launch: {call_ms:.4f}) plain_ms={plain:.4f} "
+              f"bound_ms={max(b_bytes, b_ops):.4f} library_ms={lib_ms}")
+        return err == 0
+
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2048,6 +2428,19 @@ def main() -> int:
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         return fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(src))
+    # the host-only subprocesses of phases 13 (c) and 14 (c) trace fake
+    # ranks and touch no card memory: they run beside phases 1-13
+    background = {"dry": start_dryrun(), "perf": start_perf()}
+    try:
+        return smoke(torch, background)
+    finally:
+        for job in background.values():
+            job.close()
+
+
+def smoke(torch, background: dict) -> int:
+    """Phases 1-14 (module docstring); ``background`` holds the started
+    subprocesses of 13 (c) and 14 (c)."""
     from repro_torch import (bitset, dfs_baseline, engine, graph, pattern,
                              tdr_build, tdr_query)
     from repro_torch.kernels import _build, ops, ref
@@ -2116,28 +2509,7 @@ def main() -> int:
     dev = idx.device
     rows = []
 
-    def record(name, source, replaces, got, want, k_fn, p_fn, nbytes, nops,
-               lib_fn=None, n_launches=None, err=None):
-        err = words_err(torch, got, want) if err is None else err
-        ms = time_ms(torch, k_fn, KERNEL_REPS)
-        call_ms = time_ms(torch, k_fn, KERNEL_REPS, queued=False)
-        plain = time_ms(torch, p_fn, PLAIN_REPS)
-        lib_ms = time_ms(torch, lib_fn, PLAIN_REPS) if lib_fn else None
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = nops / INT32_OPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": n_launches if n_launches is not None
-            else launches.get(name.split("[")[0], 0),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": lib_ms})
-        print(f"{name}: max_abs_err={err} ms={ms:.4f} (one call with host "
-              f"launch: {call_ms:.4f}) plain_ms={plain:.4f} "
-              f"bound_ms={max(b_bytes, b_ops):.4f} library_ms={lib_ms}")
-        return err == 0
+    record = make_record(torch, rows, launches)
 
     def print_profiled(name, fn):
         """Kernel-only device time per launch over KERNEL_REPS calls;
@@ -2606,10 +2978,18 @@ def main() -> int:
 
     # ---- 13. the LM mesh layer and the dry-run ------------------------
     t0 = time.perf_counter()
-    msg = mesh_phase(torch, lm_figures)
+    msg = mesh_phase(torch, lm_figures, background["dry"])
     if msg:
         return fail(msg)
     print(f"mesh phase: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 14. the legacy executor and the 2-D closure --------------------
+    t0 = time.perf_counter()
+    msg = tdr2d_phase(torch, g, idx, queries, answers, record,
+                      background["perf"])
+    if msg:
+        return fail(msg)
+    print(f"2-D phase: {time.perf_counter() - t0:.3f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2623,4 +3003,7 @@ if __name__ == "__main__":
         sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tdr2d-rank"]:
+        sys.exit(tdr2d_rank(int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4]))
     sys.exit(main())

@@ -8,10 +8,12 @@ every rank calls it with the same arguments, and every rank gets the whole
 result on its device.
 
 * The vertex set is split into contiguous blocks of ``ceil(V/size)`` rows,
-  shard s on group rank s.  Each rank owns the index rows of its block,
-  the out-edges of its block (forward propagation and the per-way
-  projections) and its in-edges (the reverse closure).  The adjacency
-  never moves.
+  shard s on group rank s, or on the rank at flat position s of a
+  ``DeviceMesh`` of any rank (``ShardMesh.from_device_mesh``; row-major,
+  the JAX package's numbering of a multi-axis mesh).  Each rank owns the
+  index rows of its block, the out-edges of its block (forward
+  propagation and the per-way projections) and its in-edges (the reverse
+  closure).  The adjacency never moves.
 * One fixpoint round is an all-gather of the packed int32 closure words
   (``engine.all_gather_words``) and a local packed OR reduction for the
   owned rows (``bitset.segment_or_words``); a changed flag, reduced over
@@ -29,6 +31,10 @@ result on its device.
   answers are OR-combined, and each chunk's counters are gathered and
   folded in chunk order, so every rank's ``QueryStats`` equal a
   single-device run's.
+* ``lower_distributed_closure`` and ``lower_distributed_closure_2d`` run
+  the closure at a static round count (the dry-run's and the perf
+  iterations' form); the 2-D one views the mesh as ``vtx × word`` and
+  gathers each round over the vertex axis only.
 
 The caller picks the backend: ``nccl`` when each rank has a card of its
 own, ``gloo`` on the CPU and for ranks that share one card (NCCL refuses
@@ -57,13 +63,21 @@ _PAIRS = {"gloo": ("cpu", "cuda"), "nccl": ("cuda",),
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """A process group and this rank's device; shard s is group rank s.
+    """A process group and this rank's device; shard s is group rank s,
+    or, with ``ranks``, the rank at position s of ``ranks``.
 
     ``group`` defaults to the default group, which must be initialised.
     ``device`` defaults to the card and raises when there is none; pass
-    ``device="cpu"`` on a ``gloo`` group to run on the CPU."""
+    ``device="cpu"`` on a ``gloo`` group to run on the CPU.  ``ranks``
+    lists the group's global ranks in shard order (a permutation of
+    them); ``from_device_mesh`` sets it from a ``DeviceMesh``."""
     group: "dist.ProcessGroup | None" = None
     device: torch.device = "cuda"   # type: ignore[assignment]
+    ranks: "tuple[int, ...] | None" = None
+    # shard s's block is the gathered block of group rank gather_perm[s]
+    # (None: shard order is group order)
+    gather_perm: "tuple[int, ...] | None" = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         dev = engine_mod.resolve_device(self.device)
@@ -77,14 +91,56 @@ class ShardMesh:
                 f"a {backend!r} group cannot run collectives on {dev.type} "
                 "tensors; use nccl with one card per rank, gloo on the CPU "
                 "or for ranks that share a card")
+        members = _group_ranks(self.group)
+        perm = None
+        if self.ranks is not None:
+            ranks = tuple(int(r) for r in self.ranks)
+            if sorted(ranks) != sorted(members):
+                raise ValueError(f"ranks {ranks} are not the group's "
+                                 f"ranks {members}")
+            object.__setattr__(self, "ranks", ranks)
+            if ranks != members:
+                perm = tuple(members.index(r) for r in ranks)
+        object.__setattr__(self, "gather_perm", perm)
+
+    @classmethod
+    def from_device_mesh(cls, dm, device=None) -> "ShardMesh":
+        """A mesh over the ranks of a ``DeviceMesh`` of any rank
+        (collective over the default group): shard s is the rank at flat
+        position s of ``dm.mesh``, row-major, as the JAX package numbers
+        the shards of a multi-axis mesh.  ``device`` defaults to the
+        mesh's device type."""
+        ranks = tuple(int(r) for r in dm.mesh.flatten().tolist())
+        world = dist.get_world_size()
+        group = None if sorted(ranks) == list(range(world)) else \
+            dist.new_group(sorted(ranks))
+        if dist.get_rank() not in ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh "
+                             f"{ranks}")
+        return cls(group, dm.device_type if device is None else device,
+                   ranks)
 
     @property
     def rank(self) -> int:
+        if self.ranks is not None:
+            return self.ranks.index(dist.get_rank())
         return dist.get_rank(self.group)
 
     @property
     def size(self) -> int:
         return dist.get_world_size(self.group)
+
+    def global_ranks(self) -> tuple[int, ...]:
+        """The global rank of each shard, in shard order."""
+        return self.ranks if self.ranks is not None else \
+            _group_ranks(self.group)
+
+
+def _group_ranks(group) -> tuple[int, ...]:
+    """A group's global ranks in group-rank order."""
+    if group is None:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
 
 
 def _backend_for(spec: str, device_type: str) -> str:
@@ -434,3 +490,109 @@ def lower_distributed_closure(mesh: ShardMesh, v_global: int, e_max: int,
     per = -(-v_global // mesh.size)
     return LoweredClosure(mesh, per, bitset.n_words(nbits), e_max, rounds,
                           max(1, chunk // bitset.WORD))
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredClosure2D:
+    """The 2-D (vertex × word) closure at a static round count, bound to
+    a mesh viewed as ``(v_shards, word_shards)`` and to per-rank sizes
+    (``lower_distributed_closure_2d``).  Shard s of ``mesh`` is cell
+    ``divmod(s, word_shards)``: it owns rows ``[vtx·per_v, (vtx+1)·per_v)``
+    and words ``[word·per_w, (word+1)·per_w)``, and gathers over
+    ``vtx_mesh``, the shards of its word column in vertex order."""
+    mesh: ShardMesh
+    vtx_mesh: ShardMesh
+    v_shards: int
+    word_shards: int
+    per_v: int          # rows this rank owns
+    per_w: int          # packed words of them it owns
+    e_max: int          # edge slots per vertex shard
+    rounds: int
+    chunk_words: int
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        """This rank's ``(vtx, word)`` cell."""
+        return divmod(self.mesh.rank, self.word_shards)
+
+    def inputs(self) -> tuple:
+        """Uninitialised inputs of this rank's shapes on the mesh's device:
+        ``(rows int32 [per_v, per_w], local int64 [e_max], remote int64
+        [e_max], valid bool [e_max])``; fake under ``FakeTensorMode``."""
+        dev = self.mesh.device
+        return (torch.empty((self.per_v, self.per_w), dtype=torch.int32,
+                            device=dev),
+                torch.empty((self.e_max,), dtype=torch.int64, device=dev),
+                torch.empty((self.e_max,), dtype=torch.int64, device=dev),
+                torch.empty((self.e_max,), dtype=torch.bool, device=dev))
+
+    def __call__(self, rows, local, remote, valid) -> torch.Tensor:
+        """``rounds + 1`` times ``R = R | OR_{(a,b)} gathered(R)[b]``,
+        from ``R = rows``: this rank's block of the closure.  ``rows`` are
+        its packed seed words; ``local``/``remote`` the edges of its
+        vertex shard as ``partition_graph(graph, v_shards)`` lays them
+        out (the same on every rank of a vertex shard).  The seeds stay
+        in the result, so it is ``seeds | LoweredClosure`` of the 1-D
+        form at the same round count, word slice for word slice."""
+        okw = bitset.full_words_where(valid)[:, None]
+
+        def round_(r):
+            # gather over the vertex axis only: this rank's word slice of
+            # every row, already packed
+            full = engine_mod.all_gather_words(r, self.vtx_mesh)
+            upd = bitset.segment_or_words(full[remote] & okw, local,
+                                          num_segments=self.per_v,
+                                          chunk_words=self.chunk_words)
+            return r | upd
+
+        r = round_(rows)
+        for _ in range(self.rounds):
+            r = round_(r)
+        return r
+
+
+def lower_distributed_closure_2d(mesh: ShardMesh, v_global: int, e_max: int,
+                                 nbits: int, rounds: int, *,
+                                 word_shards: int = 8,
+                                 chunk: int = 64) -> LoweredClosure2D:
+    """The 2-D (vertex × word) partitioned closure (collective).
+
+    The 1-D layout gathers the whole packed table (V × W words) on every
+    rank every round.  The OR recurrence is elementwise in the word
+    dimension, so a rank that owns ``W/word_shards`` words needs only
+    those words of every row it references: viewing the mesh as
+    ``(v_shards, word_shards)`` with dims ``("vtx", "word")`` divides each
+    round's gather by ``word_shards`` at the same compute per rank.  Each
+    round gathers over the ``"vtx"`` group of a rank's word column only;
+    the edge lists are the same across the word axis.  Every rank makes
+    every ``"vtx"`` group, in word order.
+
+    The form is the JAX package's, which differs from the 1-D lowering:
+    it starts from ``rows | step(rows)``, so the seeds stay in the result
+    (``seeds | lower_distributed_closure(...)(...)`` at the same
+    ``rounds``).  Raises ``ValueError`` when ``word_shards`` does not
+    divide the mesh's size or the row's word count."""
+    n = mesh.size
+    words = bitset.n_words(nbits)
+    if word_shards < 1 or n % word_shards:
+        raise ValueError(f"word_shards={word_shards} does not divide the "
+                         f"mesh's {n} ranks")
+    if words % word_shards:
+        raise ValueError(f"word_shards={word_shards} does not divide the "
+                         f"{words} words of a {nbits}-bit row")
+    v_shards = n // word_shards
+    per_w = words // word_shards
+    if word_shards == 1:
+        vtx_mesh = mesh
+    else:
+        ranks = mesh.global_ranks()
+        vtx_mesh = None
+        for w in range(word_shards):
+            column = tuple(ranks[v * word_shards + w]
+                           for v in range(v_shards))
+            group = dist.new_group(sorted(column))
+            if w == mesh.rank % word_shards:
+                vtx_mesh = ShardMesh(group, mesh.device, column)
+    return LoweredClosure2D(mesh, vtx_mesh, v_shards, word_shards,
+                            -(-v_global // v_shards), per_w, e_max, rounds,
+                            min(max(1, chunk // bitset.WORD), per_w))

@@ -203,12 +203,19 @@ def _on_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def all_gather_words(x_local: torch.Tensor, mesh) -> torch.Tensor:
     """Gather every rank's packed int32 block ``[per, W]`` into the full
-    table ``[size·per, W]``, rank-major (rank s's rows at ``s·per``)."""
+    table ``[size·per, W]``, shard-major (shard s's rows at ``s·per``).
+    The group gathers in its own rank order; a mesh whose shard order
+    differs (``ShardMesh.gather_perm``) gets its blocks put back."""
     x = _on_mesh(x_local, mesh)
     out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     gather(out, x, group=mesh.group)
+    perm = getattr(mesh, "gather_perm", None)
+    if perm is not None:
+        blocks = out.reshape((mesh.size,) + tuple(x.shape))
+        out = blocks[torch.tensor(perm, device=out.device)].reshape(
+            out.shape)
     return out
 
 
@@ -362,6 +369,11 @@ class Engine:
         free, _ = torch.cuda.mem_get_info(self.device)
         return (free + torch.cuda.memory_reserved(self.device)
                 - torch.cuda.memory_allocated(self.device))
+
+    def can_pack_dense(self, n_matrices: int = 1) -> bool:
+        """Would ``n_matrices`` dense adjacency bit-matrices fit the cap?"""
+        v_n = self.graph.n_vertices
+        return n_matrices * v_n * bitset.n_words(v_n) * 4 <= self.dense_cap()
 
     def dense_fits(self, nbytes: int, what: str) -> bool:
         """Whether a dense operand of ``nbytes`` may be built.  Over the

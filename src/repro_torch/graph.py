@@ -185,6 +185,14 @@ def csr_row_edges(indptr: np.ndarray, rows: np.ndarray) -> np.ndarray:
         np.arange(tot) - np.repeat(np.cumsum(counts) - counts, counts))
 
 
+def pad_pow2(n: int, lo: int = 1) -> int:
+    """Smallest power of two >= max(n, lo) (stable-shape bucketing)."""
+    p = lo
+    while p < n:
+        p *= 2
+    return p
+
+
 def pad_bucket(n: int, lo: int = 1) -> int:
     """Smallest value >= max(n, lo) on the {2^k, 3·2^(k-1)} grid
     (powers of two plus midpoints: 32, 48, 64, 96, 128, ...)."""

@@ -18,6 +18,7 @@ from .block_sparse import (block_sparse_lane_matmul,  # noqa: F401
 from .lane_matmul import cuda_lane_matmul
 from .pattern_filter import cuda_way_filter, cuda_way_filter_at
 from .popcount import cuda_popcount_rows
+from .. import bitset
 from ..compressed import BlockCompressed
 
 
@@ -26,6 +27,18 @@ def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a_packed.is_cuda:
         return cuda_bitset_matmul(a_packed, x.contiguous())
     return ref.bitset_matmul_ref(a_packed, x)
+
+
+def frontier_step_mxu(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The unpacked lowering of ``frontier_step``: both operands as bf16
+    0/1 matrices (the reference's MXU operands), one float32
+    ``torch.matmul``, threshold, repack.  32x the bytes of the packed
+    kernel; the JAX package computes it with ``dot_general`` outside any
+    Pallas kernel, so it is a library product here on either device."""
+    a_bits = ref.unpacked_bf16(a_packed, x.shape[0])
+    x_bits = ref.unpacked_bf16(x, x.shape[1] * bitset.WORD)
+    y = torch.matmul(a_bits.float(), x_bits.float())
+    return bitset.pack_bits(y > 0)
 
 
 def frontier_step_lanes(a_packed: torch.Tensor, x: torch.Tensor, *,

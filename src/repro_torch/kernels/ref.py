@@ -76,7 +76,7 @@ def way_filter_at_ref(u, v, req, forb, null_plane, vtx_packed, h_vtx, h_lab,
 def unpacked_bf16(words: torch.Tensor, nbits: int) -> torch.Tensor:
     """Packed rows as a bf16 0/1 matrix ``[N, nbits]``: the operand of the
     library yardstick a kernel is timed against (one bf16 ``torch.matmul``
-    of the unpacked bits).  Timing only: no path computes on it."""
+    of the unpacked bits) and of ``ops.frontier_step_mxu``."""
     return bitset.unpack_bits(words, nbits).to(torch.bfloat16)
 
 

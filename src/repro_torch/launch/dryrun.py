@@ -354,9 +354,7 @@ def run_tdr_cell(mesh_kind: str, *, device="cuda",
     dev = resolve_device(device)
     t0 = time.time()
     the_mesh, chips = _mesh_for(mesh_kind, device, mesh_shape)
-    group = None if dist.get_world_size() == chips else \
-        dist.new_group(list(range(chips)))
-    shard_mesh = distributed.ShardMesh(group, dev)
+    shard_mesh = distributed.ShardMesh.from_device_mesh(the_mesh, dev)
     gcfg = gcfg or configs.TDR_GRAPH
     e_max = -(-gcfg.n_edges // chips)
     lowered = distributed.lower_distributed_closure(

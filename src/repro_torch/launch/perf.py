@@ -1,8 +1,8 @@
 """Named hill-climb iterations over dry-run cells: run one on one cell and
 record its roofline into ``build/perf_iterations.json``.
 
-A port of ``src/repro/launch/perf.py``'s LM iterations, traced on fake
-ranks of ``device`` like ``launch/dryrun.py`` (run it in a process of its
+A port of ``src/repro/launch/perf.py``'s iterations, traced on fake ranks
+of ``device`` like ``launch/dryrun.py`` (run it in a process of its
 own):
   rwkv-chunked         rwkv6-3b × train_4k with the chunked WKV6 formulation
   ds-micro8            deepseek-v2 × train_4k with shardable microbatches
@@ -10,13 +10,15 @@ own):
   ds-policy            + checkpoint policy saving the unbatched matmuls
   gemma3-decode-window gemma3-27b × decode_32k
   rwkv-dp              rwkv6-3b × train_4k as 256-way DP + ZeRO-1
+  tdr-1d               tdr-graph closure, vertex-partitioned (1-D)
+  tdr-2d               tdr-graph closure, 2-D (vertex × word), 8 word shards
+  tdr-2d-w4            the same at 4 word shards
 
-The reference's ``tdr-1d``/``tdr-2d``/``tdr-2d-w4`` need its 2-axis TDR
-meshes (``lower_distributed_closure_2d``), which the port has not yet
-(ROADMAP queue A); ``rwkv-chunk-mxu``, named in the reference's docstring,
-has no iteration there to port.
+``rwkv-chunk-mxu``, named in the reference's docstring, has no iteration
+there to port.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.perf --iter rwkv-chunked
+       PYTHONPATH=src python -m repro_torch.launch.perf --iter tdr-2d
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ ITERATIONS = {
     "gemma3-decode-window": ("gemma3-27b", "decode_32k", {}),
 }
 
+# iteration -> run_tdr_variant's (two_d, word_shards)
+TDR_ITERATIONS = {"tdr-1d": (False, 8), "tdr-2d": (True, 8),
+                  "tdr-2d-w4": (True, 4)}
+
 
 def record(name: str, rec: dict, out: str = OUT) -> None:
     data = {"iterations": {}}
@@ -62,6 +68,53 @@ def record(name: str, rec: dict, out: str = OUT) -> None:
           f"memory={ro.get('memory_s', 0):.3f}s "
           f"collective={ro.get('collective_s', 0):.3f}s "
           f"dom={ro.get('dominant')} mfu={ro.get('mfu', 0):.4f}")
+
+
+def run_tdr_variant(two_d: bool, word_shards: int = 8, *, device="cuda",
+                    mesh_shape: tuple | None = None, gcfg=None) -> dict:
+    """§Perf iterations T1/T2: the tdr-graph closure on the 256 fake ranks
+    of the production mesh, 1-D (``lower_distributed_closure``) or 2-D
+    (``lower_distributed_closure_2d``), counted as ``dryrun.run_tdr_cell``
+    counts it, in the reference's record schema.  ``mesh_shape`` and
+    ``gcfg`` replace the mesh and ``configs.TDR_GRAPH`` (a small run of
+    the same path, as in ``run_tdr_cell``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from .. import distributed
+    dev = resolve_device(device)
+    the_mesh, _ = dryrun._mesh_for("single", device, mesh_shape)
+    shard_mesh = distributed.ShardMesh.from_device_mesh(the_mesh, dev)
+    gcfg = gcfg or configs.TDR_GRAPH
+    n_dev = shard_mesh.size
+    if two_d:
+        v_shards = n_dev // word_shards
+        e_max = -(-gcfg.n_edges // v_shards)
+        lowered = distributed.lower_distributed_closure_2d(
+            shard_mesh, gcfg.n_vertices, e_max, gcfg.vtx_bits, gcfg.rounds,
+            word_shards=word_shards)
+    else:
+        e_max = -(-gcfg.n_edges // n_dev)
+        lowered = distributed.lower_distributed_closure(
+            shard_mesh, gcfg.n_vertices, e_max, gcfg.vtx_bits, gcfg.rounds)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = lowered.inputs()
+    t0 = time.time()
+    with dryrun._counted(args) as got:
+        lowered(*args)
+    dt = time.time() - t0
+    cost = got["cost"]
+    roof = roof_lib.Roofline.from_cost(
+        cost, chips=n_dev,
+        model_flops=float(gcfg.n_edges) * (gcfg.vtx_bits // 32)
+        * gcfg.rounds)
+    arg_b = dryrun._local_bytes(args)
+    return {
+        "cell": "tdr-graph", "variant": "2d" if two_d else "1d",
+        "compile_s": round(dt, 2),
+        "memory": {"temp_gb": (got["peak"] - arg_b) / dryrun.GB,
+                   "argument_gb": arg_b / dryrun.GB},
+        "hlo": dryrun._cost_record(cost, detail=False),
+        "roofline": roof.as_dict(),
+    }
 
 
 def run_rwkv_dp(*, device="cuda") -> dict:
@@ -154,6 +207,8 @@ def main(argv=None) -> None:
     it = args.iter
     if it == "rwkv-dp":
         rec = run_rwkv_dp(device=args.device)
+    elif it in TDR_ITERATIONS:
+        rec = run_tdr_variant(*TDR_ITERATIONS[it], device=args.device)
     elif it in ITERATIONS:
         arch, shape_name, extra = ITERATIONS[it]
         rec = dryrun.run_cell(arch, shape_name, "single", extra=extra,

@@ -993,7 +993,7 @@ class QueryServer:
                 continue
             tdr_query.answer_plan(
                 idx, pplan.pad_to(b), exact_chunk=cfg.exact_chunk,
-                backend=cfg.backend, exact_mode=cfg.exact_mode,
+                backend=cfg.backend, exact_mode=self._kind_mode("bool"),
                 special_labels=self._special, pin_m=self._pin_m,
                 pad_lo=cfg.min_bucket)
         self._warmed_to = top
@@ -1006,7 +1006,7 @@ class QueryServer:
         if probes:
             u0, v0, p0 = probes[0]
             common = dict(max_m=cfg.max_m, backend=cfg.backend,
-                          exact_mode=cfg.exact_mode, pin_m=self._pin_m,
+                          exact_mode=self._kind_mode(), pin_m=self._pin_m,
                           device=idx.device)
             tdr_query.dist_batch(idx, [(u0, v0, p0)], k=1,
                                  exact_chunk=cfg.exact_chunk,
@@ -1201,7 +1201,7 @@ class QueryServer:
             if uniq[kk][3] == "dist":
                 dist_groups[uniq[kk][5]].append(kk)
         common = dict(max_m=cfg.max_m, backend=cfg.backend,
-                      exact_mode=cfg.exact_mode, pin_m=self._pin_m,
+                      exact_mode=self._kind_mode(), pin_m=self._pin_m,
                       stats=qstats, device=self.index.device)
         for kb, group in dist_groups.items():
             ds = tdr_query.dist_batch(
@@ -1226,6 +1226,13 @@ class QueryServer:
                                                  hops=hops, **common)
         return out
 
+    def _kind_mode(self, kind: str = "other") -> str:
+        """The exact mode a kind runs: the boolean kind runs
+        ``config.exact_mode``; the other kinds' executors refuse
+        "legacy", so they run the shape-stable "full" in its place."""
+        mode = self.config.exact_mode
+        return "full" if mode == "legacy" and kind != "bool" else mode
+
     def _answer(self, queries, stats=None) -> np.ndarray:
         cfg = self.config
         plan = tdr_query.compile_queries(self.index, queries,
@@ -1236,7 +1243,7 @@ class QueryServer:
                 self.stats.unpinned_batches += 1
         return tdr_query.answer_plan(
             self.index, plan, exact_chunk=cfg.exact_chunk, stats=stats,
-            backend=cfg.backend, exact_mode=cfg.exact_mode,
+            backend=cfg.backend, exact_mode=self._kind_mode("bool"),
             special_labels=self._special, pin_m=self._pin_m,
             pad_lo=cfg.min_bucket)
 

@@ -27,6 +27,10 @@ some vertex holds forward state s₁ and backward state s₂ with
 ``bitset_matmul`` per label class per direction; on ``segment``, a gather,
 a per-edge subset transition and an OR over padded incidence rows.
 
+``exact_mode="legacy"`` keeps the first phase-2 executor: one direction
+from ``u`` over the full graph until every target state is reached (on
+``matmul`` one ``bitset_matmul`` per label class per round).
+
 The expansion is exact (the corridor is a superset of every u→v path), so
 answers equal the DFS oracle bit for bit.  Every loop is a Python loop
 with one host sync per round; plan shapes, round counts and ``QueryStats``
@@ -66,7 +70,12 @@ from .tdr_build import TDRIndex, _null_words
 
 FALSE, TRUE, UNKNOWN = 0, 1, 2
 
-EXACT_MODES = ("auto", "compact", "full")
+#: phase-2 executors of the other kinds (``dist_batch``, ``witness``,
+#: ``count_routes``, ``rpq_batch``)
+KIND_MODES = ("auto", "compact", "full")
+#: phase-2 executors of boolean answers: the kinds' plus "legacy", the
+#: retained one-directional full-graph executor
+EXACT_MODES = KIND_MODES + ("legacy",)
 
 #: query kinds the planner accepts (one per query): boolean reachability,
 #: shortest pattern-constrained hop distance, an actual witness path,
@@ -546,6 +555,71 @@ def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
         cor_w, lambda f, b: _meet(f, b, sup_need), max_rounds)
 
 
+# -------------------------------------------- legacy one-directional executor
+def _expand_loop(f0, upd_of, v, full_mask, max_rounds: int):
+    """One-directional fixpoint over a full-graph frontier ``[V, Q]``: run
+    until every query's target state bit is set, nothing changes, or
+    ``max_rounds``.  Finished queries' columns freeze, and ``changed``
+    comes from the round's own new bits; one host sync per round."""
+    iota = torch.arange(v.shape[0], device=v.device)
+
+    def done_of(f):
+        return ((f[v, iota] >> full_mask) & 1) != 0
+
+    f = f0
+    done = done_of(f)
+    changed, all_done, rounds = True, bool(done.all()), 0
+    while changed and not all_done and rounds < max_rounds:
+        new = upd_of(f) & ~f & bitset.full_words_where(~done)[None, :]
+        f = f | new
+        done = done | done_of(f)
+        changed, all_done = torch.stack(
+            [(new != 0).any(), done.all()]).tolist()
+        rounds += 1
+    return done, rounds
+
+
+def _legacy_segment(u, v, req_labels, forb_raw_w, full_mask, cor_w, elab,
+                    edge_src, edge_dst, n_states: int, max_m: int,
+                    max_rounds: int, chunk_words: int):
+    """Legacy segment form: one round is a gather of the source rows, the
+    per-edge subset transition and a packed segment-OR into the
+    destinations."""
+    allow, has, sh = _edge_state_masks(elab, req_labels, forb_raw_w,
+                                       n_states, max_m)
+    v_n = cor_w.shape[0]
+
+    def upd_of(f):
+        val = _transition(f[edge_src] & allow, has, sh)          # [E, Q]
+        return bitset.segment_or_words(val, edge_dst, num_segments=v_n,
+                                       chunk_words=chunk_words) & cor_w
+
+    return _expand_loop(_seed(u, v_n, u.shape[0]), upd_of, v, full_mask,
+                        max_rounds)
+
+
+def _legacy_matmul(u, v, class_adj, class_label, req_labels, forb_raw_w,
+                   full_mask, cor_w, n_states: int, max_m: int,
+                   max_rounds: int):
+    """Legacy matmul form: one ``bitset_matmul`` per label class per round
+    on the full graph's reverse class stack."""
+    neutral = class_label < 0
+    allow, has, sh = _edge_state_masks(class_label, req_labels, forb_raw_w,
+                                       n_states, max_m, neutral=neutral)
+    v_n = cor_w.shape[0]
+
+    def upd_of(f):
+        upd = torch.zeros_like(f)
+        for c in range(class_adj.shape[0]):
+            y = engine_mod._matmul_rows(class_adj[c], f)[:v_n]
+            upd = upd | _transition(y & allow[c][None, :], has[c][None, :],
+                                    sh[c][None, :])
+        return upd & cor_w
+
+    return _expand_loop(_seed(u, v_n, u.shape[0]), upd_of, v, full_mask,
+                        max_rounds)
+
+
 # ---------------------------------------------------------------- executor
 class PlanDevice(NamedTuple):
     """Device copy of the plan's job-axis arrays (made once per batch)."""
@@ -620,6 +694,7 @@ class ExactExecutor:
         self.dst_np = np.asarray(g.indices)
         self.lab_np = np.asarray(g.labels)
         self._full_inc: tuple | None = None
+        self._elab: torch.Tensor | None = None
 
     @property
     def index(self) -> TDRIndex:
@@ -695,9 +770,14 @@ class ExactExecutor:
     def run_chunk(self, plan: QueryPlan, pd: PlanDevice, jobs: np.ndarray,
                   member: np.ndarray | None, special: tuple[int, ...],
                   mode: str, pin_m: int | None = None) -> ChunkResult:
-        """Expand one padded chunk of pending jobs.  ``member is None`` ->
+        """Expand one padded chunk of pending jobs.  ``mode == "legacy"``
+        -> the one-directional full-graph executor; ``member is None`` ->
         full-graph bidirectional expansion (corridor built on the device);
         else corridor compaction over the member rows."""
+        if mode == "legacy":
+            reached, rounds = self._run_legacy(plan, jobs, special)
+            v_n = self.index.graph.n_vertices
+            return ChunkResult(jobs, len(jobs), reached, rounds, v_n, v_n)
         idx, eng = self.index, self.engine
         dev = idx.device
         g = idx.graph
@@ -771,6 +851,49 @@ class ExactExecutor:
         return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
                            compacted)
 
+    def _run_legacy(self, plan: QueryPlan, jobs: np.ndarray,
+                    special: tuple[int, ...]):
+        """The one-directional full-graph expansion (``exact_mode=
+        "legacy"``, kept as a comparison executor): frontier ``[V, Q]``,
+        bit s of word (i, q) set when vertex i is reached in subset state
+        s, at the plan's whole state width ``1 << plan.max_m`` (no pin).
+        On ``matmul`` the reverse class stack is held to the dense cap:
+        over it a card raises ``DenseCapError`` and the CPU warns and runs
+        the segment form."""
+        idx, eng = self.index, self.engine
+        dev = idx.device
+        v_n = idx.graph.n_vertices
+        n_states = 1 << plan.max_m
+        if n_states > 32:
+            raise ValueError(
+                f"max_m={plan.max_m} needs {n_states} subset states; the "
+                "packed executor holds at most 32 (max_m <= 5)")
+        max_rounds = v_n * n_states + 1
+        uu, vv = _to_long(plan.u[jobs], dev), _to_long(plan.v[jobs], dev)
+        req_labels = _to_long(plan.req_labels[jobs], dev)
+        forb_raw_w = bitset.np_to_words(plan.forb_raw_w[jobs], dev)
+        full_mask = torch.from_numpy(plan.full_mask[jobs]).to(dev)
+        cor_w = _corridor_mask(uu, vv, idx.n_out, idx.n_in, idx.vtx_packed)
+        n_cls = len(special) + 1
+        if eng.backend == "matmul" and eng.dense_fits(
+                n_cls * v_n * bitset.n_words(v_n) * 4,
+                f"{n_cls} label-class adjacency matrices"):
+            return _legacy_matmul(
+                uu, vv, eng.label_class_adjacency(special),
+                _to_long(np.asarray(special + (-1,)), dev), req_labels,
+                forb_raw_w, full_mask, cor_w, n_states, plan.max_m,
+                max_rounds)
+        return _legacy_segment(
+            uu, vv, req_labels, forb_raw_w, full_mask, cor_w,
+            self._edge_labels(), eng.edge_src, eng.edge_dst, n_states,
+            plan.max_m, max_rounds, eng.config.chunk_words)
+
+    def _edge_labels(self) -> torch.Tensor:
+        """The graph's edge labels on the index's device (cached)."""
+        if self._elab is None:
+            self._elab = _to_long(self.lab_np, self.index.device)
+        return self._elab
+
     def _full_incidence(self):
         """Cached full-graph operand tuple for near-total corridors."""
         if self._full_inc is None:
@@ -781,7 +904,7 @@ class ExactExecutor:
             ids_out = graph_mod.incidence_plan(self.src_np, g.n_vertices,
                                                g.n_edges)
             self._full_inc = (
-                _to_long(self.lab_np, dev), self.engine.edge_src,
+                self._edge_labels(), self.engine.edge_src,
                 self.engine.edge_dst,
                 tuple(_to_long(a, dev) for a in ids_in),
                 tuple(_to_long(a, dev) for a in ids_out))
@@ -853,7 +976,9 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     ``backend``/``engine_config`` select the engine backend for phase 2.
     ``exact_mode`` picks the phase-2 executor: "auto" (corridor-compacted
     whenever the padded corridor bucket is smaller than V), "compact"
-    (force compaction) or "full" (full graph).  The job axis is padded
+    (force compaction), "full" (full graph) or "legacy" (the retained
+    one-directional full-graph executor, ``ExactExecutor._run_legacy``,
+    which ignores ``pin_m``).  The job axis is padded
     onto the ``{2^k, 3·2^(k-1)}`` grid from ``pad_lo`` up, as in the
     reference.  ``filters_only`` returns right after phase 1 with every
     UNKNOWN job counted as reachable: an upper bound of the answers, which
@@ -906,7 +1031,6 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     else:
         verdict = _cascade_rows(index, plan_p,
                                 slice(None)).cpu().numpy()
-    pd_u, pd_v = _to_long(plan_p.u, dev), _to_long(plan_p.v, dev)
 
     real = plan_p.qid >= 0
     stats.filter_false += int(((verdict == FALSE) & real).sum())
@@ -929,14 +1053,17 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     ex = _executor(index, eng)
     v_n = index.graph.n_vertices
     special = _pinned(ex.special_labels(plan_p, pending), special_labels)
-    pd = PlanDevice(pd_u, pd_v, _to_long(plan_p.req_labels, dev),
-                    bitset.np_to_words(plan_p.forb_raw_w, dev),
-                    torch.from_numpy(plan_p.full_mask).to(dev))
+    pd = None
+    if exact_mode != "legacy":
+        pd = PlanDevice(_to_long(plan_p.u, dev), _to_long(plan_p.v, dev),
+                        _to_long(plan_p.req_labels, dev),
+                        bitset.np_to_words(plan_p.forb_raw_w, dev),
+                        torch.from_numpy(plan_p.full_mask).to(dev))
 
     # chunk layout + compaction probe: membership [P, V] is fetched only
     # for the jobs of chunks that will actually compact
     starts = list(range(0, len(pending), exact_chunk))
-    if exact_mode == "full":
+    if exact_mode in ("full", "legacy"):
         compact_flags = [False] * len(starts)
     elif exact_mode == "compact":
         compact_flags = [True] * len(starts)
@@ -1353,7 +1480,7 @@ def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
                 pin_m: int | None):
     """Shared prologue of the lane executors: device check, plan, engine,
     executor, state width and the plan's device arrays."""
-    if exact_mode not in EXACT_MODES:
+    if exact_mode not in KIND_MODES:
         raise ValueError(f"unknown exact_mode {exact_mode!r} for {what}; "
                          "expected auto | compact | full")
     _check_device(index, device)
@@ -1809,7 +1936,7 @@ def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
       engine's dense cap (over it a card raises ``DenseCapError``, the
       CPU warns and runs the segment core).
     """
-    if exact_mode not in EXACT_MODES:
+    if exact_mode not in KIND_MODES:
         raise ValueError(f"unknown exact_mode {exact_mode!r} for rpq; "
                          "expected auto | compact | full")
     if q_unroll is not None and q_unroll not in (4, 8, 16, 32):

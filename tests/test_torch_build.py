@@ -18,6 +18,16 @@ AUX = ("base_v", "base_l", "base_r", "r_vtx", "r_lab", "r_in", "d_vtx",
        "d_lab")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its ops are small, and parallel
+    test workers then do not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_index(kind, n, seed):
     g = RG.random_graph(kind, n, 2.2, 5, seed=seed)
@@ -410,3 +420,30 @@ def test_words_intersect_matches_reference():
                                  bitset.np_to_words(b, "cpu"))
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any() and not want.all()
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("n,lo", [(0, 1), (1, 1), (5, 1), (33, 32),
+                                  (64, 1), (65, 16), (3, 8), (1000, 32)])
+def test_pad_pow2_matches_reference(n, lo):
+    assert G.pad_pow2(n, lo=lo) == RG.pad_pow2(n, lo=lo)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("n_matrices", [1, 2, 3, 5])
+def test_can_pack_dense_matches_reference(n_matrices):
+    """``n × V × ceil(V/32) × 4`` against the cap, at a cap that fits
+    exactly two matrices; on the CPU with no cap set it is the
+    reference's 256 MiB default."""
+    g = G.erdos_renyi(70, 2.0, 4, seed=0)
+    rg = RG.erdos_renyi(70, 2.0, 4, seed=0)
+    cap = 2 * 70 * bitset.n_words(70) * 4
+    eng = engine.make_engine(g, backend="matmul", device="cpu",
+                             config=engine.EngineConfig(max_dense_bytes=cap))
+    reng_ = reng.make_engine(rg, backend="segment",
+                             config=reng.EngineConfig(max_dense_bytes=cap))
+    assert eng.can_pack_dense(n_matrices) == reng_.can_pack_dense(
+        n_matrices) == (n_matrices <= 2)
+    default = engine.make_engine(g, backend="matmul", device="cpu")
+    assert default.can_pack_dense(n_matrices) == reng.make_engine(
+        rg, backend="segment").can_pack_dense(n_matrices)

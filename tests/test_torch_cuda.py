@@ -956,6 +956,73 @@ def test_two_gloo_ranks_on_card(cuda):
     assert "torch multidevice check OK" in r.stdout
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["er", "pa"])
+def test_legacy_on_card_matches_segment_and_oracle(cuda, kind):
+    """``exact_mode="legacy"`` on the card: the matmul form launches B1
+    once per label class per round and equals the segment form (answers
+    and rounds) and the DFS oracle."""
+    g = G.random_graph(kind, 300, 3.0, 6, seed=1)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64))
+    qs = _kind_queries(np.random.default_rng(4), 300, 6, 48)
+    want = [dfs_baseline.answer_pcr(g, u, v, p) for u, v, p in qs]
+    st_m, st_s = tdr_query.QueryStats(), tdr_query.QueryStats()
+    n0 = ops.KERNEL_LAUNCHES["bitset_matmul"]
+    got = tdr_query.answer_batch(idx, qs, exact_mode="legacy", stats=st_m)
+    assert ops.KERNEL_LAUNCHES["bitset_matmul"] > n0
+    seg = tdr_query.answer_batch(idx, qs, exact_mode="legacy",
+                                 backend="segment", stats=st_s)
+    assert got.tolist() == seg.tolist() == want
+    assert st_m.exact_rounds == st_s.exact_rounds > 0
+
+
+@pytest.mark.gpu
+def test_legacy_dense_cap_on_the_card_raises(cuda):
+    """A legacy class stack over the dense cap raises on the card."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=1)
+    adj_bytes = 300 * bitset.n_words(300) * 4
+    ecfg = engine.EngineConfig(max_dense_bytes=2 * adj_bytes)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=64),
+                                engine_config=ecfg)
+    qs = [(u, (u * 7 + 3) % 300, pattern.all_of([0, 1])) for u in range(64)]
+    with pytest.raises(engine.DenseCapError):
+        tdr_query.answer_batch(idx, qs, engine_config=ecfg,
+                               exact_mode="legacy")
+
+
+@pytest.mark.gpu
+def test_frontier_step_mxu_on_card_matches_the_kernel(cuda):
+    rng = np.random.default_rng(5)
+    a = bitset.np_to_words(bitset.pack_bits_np(rng.random((300, 512))
+                                               < 0.05), cuda)
+    x = bitset.np_to_words(_words(rng, 512, 9), cuda)
+    assert torch.equal(ops.frontier_step_mxu(a, x), ops.frontier_step(a, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [0, 2, 40])
+def test_closure_2d_on_card_keeps_the_seeds(card_mesh, rounds):
+    """One gloo rank on the card: the 2-D closure equals ``seeds | the 1-D
+    closure`` at the same round count, and at the fixpoint
+    ``seeds | r_vtx``."""
+    from repro_torch import distributed
+    g = G.random_graph("pa", 257, 2.5, 5, seed=2)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=128))
+    _, ed = distributed.partition_graph(g, 1)
+    args = (bitset.np_to_words(idx.vtx_words, card_mesh.device),
+            *(torch.from_numpy(a[0]).to(card_mesh.device) for a in (
+                ed.local.astype(np.int64), ed.remote.astype(np.int64),
+                ed.valid)))
+    e_max = ed.local.shape[1]
+    got = distributed.lower_distributed_closure_2d(
+        card_mesh, 257, e_max, 128, rounds, word_shards=1)(*args)
+    one = distributed.lower_distributed_closure(
+        card_mesh, 257, e_max, 128, rounds)(*args)
+    assert torch.equal(got, args[0] | one)
+    if rounds >= idx.fixpoint_rounds:
+        assert torch.equal(got, args[0] | idx.r_vtx)
+
+
 # ------------------------------------------------------- the LM substrate
 # The reduced archs in float32 on the card against the port on the CPU
 # from the same weights and batch, TF32 off for matmuls and cuDNN.  The

@@ -28,6 +28,16 @@ CFG = dict(vtx_bits=64, g_max=4, k=3)
 
 
 @pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its ops are small, and parallel
+    test workers then do not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
 def mesh():
     """A one-rank gloo group on the CPU, for the test's duration."""
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
@@ -86,7 +96,8 @@ def test_sharded_answer_batch_matches_oracle(mesh, backend):
 
 
 @pytest.mark.parametrize("backend", ["segment", "matmul"])
-@pytest.mark.parametrize("exact_mode", ["auto", "compact", "full"])
+@pytest.mark.parametrize("exact_mode", ["auto", "compact", "full",
+                                        "legacy"])
 def test_sharded_query_stats_equal_meshless(mesh, backend, exact_mode):
     """Every counter of ``QueryStats`` (rounds in chunk order included)
     equals the meshless run's and the reference's on a fresh index."""
@@ -289,6 +300,22 @@ def test_mesh_checks_its_pairing(mesh):
     assert (mesh.rank, mesh.size) == (0, 1)
 
 
+@pytest.mark.usefixtures("one_thread")
+def test_shard_mesh_from_a_device_mesh(mesh):
+    """A one-rank ``DeviceMesh`` gives the default group in shard order;
+    ``ranks`` must be the group's."""
+    from torch.distributed.device_mesh import DeviceMesh
+    dm = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                    mesh_dim_names=("vtx", "word"))
+    sm = distributed.ShardMesh.from_device_mesh(dm)
+    assert (sm.rank, sm.size, sm.ranks, sm.gather_perm) == (0, 1, (0,),
+                                                            None)
+    assert sm.group is None and sm.device == torch.device("cpu")
+    assert sm.global_ranks() == mesh.global_ranks() == (0,)
+    with pytest.raises(ValueError, match="not the group's"):
+        distributed.ShardMesh(device="cpu", ranks=(1,))
+
+
 def test_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         distributed.ShardMesh(device="cpu")
@@ -299,6 +326,74 @@ def test_build_index_refuses_layout_with_mesh(mesh):
     with pytest.raises(ValueError, match="layout"):
         tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
                               mesh=mesh, layout=np.arange(20))
+
+
+def _fixpoint_rounds(g, words, ed, mesh) -> int:
+    """Rounds of the converged 1-D closure of ``words`` on ``mesh``."""
+    rows = bitset.np_to_words(words, "cpu")
+    loc, rem, okw = distributed._shard_edges(ed, 0, "cpu")
+
+    def step(r):
+        return engine.propagate_sharded(r, rem, loc, okw, mesh,
+                                        num_segments=g.n_vertices,
+                                        chunk_words=2)
+    return engine.closure_sharded(step(rows), step, mesh,
+                                  max_iters=g.n_vertices)[1]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("nbits", [64, 32])
+def test_closure_2d_matches_reference_lowering(mesh, nbits):
+    """``lower_distributed_closure_2d`` at ``word_shards=1`` equals the
+    reference's 2-D lowering, compiled and run on a one-device mesh, at
+    R = 0, 1, 2 and the fixpoint's round count; it keeps the seeds
+    (``seeds | the 1-D closure``), where the 1-D form does not."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    g = G.erdos_renyi(60, 2.0, 4, seed=3)
+    cfg = tdr_build.TDRConfig(vtx_bits=nbits)
+    _, _, disc = tdr_build.dfs_intervals(g)
+    words = tdr_build._vertex_bit_words(cfg, disc)
+    _, ed = distributed.partition_graph(g, 1, by="src")
+    e_max = ed.local.shape[1]
+    jmesh = Mesh(np.array(jax.devices()[:1]), ("d",))
+    seeds = bitset.np_to_words(words, "cpu")
+    args = (seeds, torch.from_numpy(ed.local[0].astype(np.int64)),
+            torch.from_numpy(ed.remote[0].astype(np.int64)),
+            torch.from_numpy(ed.valid[0]))
+    fix = _fixpoint_rounds(g, words, ed, mesh)
+    for rounds in (0, 1, 2, fix):
+        low = distributed.lower_distributed_closure_2d(
+            mesh, 60, e_max, nbits, rounds, word_shards=1)
+        assert (low.v_shards, low.per_v, low.per_w, low.coords) == (
+            1, 60, nbits // 32, (0, 0))
+        got = low(*args)
+        want = np.asarray(RDist.lower_distributed_closure_2d(
+            jmesh, 60, e_max, nbits, rounds, word_shards=1).compile()(
+            jnp.asarray(words[None]), jnp.asarray(ed.local),
+            jnp.asarray(ed.remote), jnp.asarray(ed.valid)))
+        assert np.array_equal(got.numpy().view(np.uint32),
+                              want.reshape(60, -1)), rounds
+        one = distributed.lower_distributed_closure(
+            mesh, 60, e_max, nbits, rounds)(*args)
+        assert torch.equal(got, seeds | one), rounds
+        assert not torch.equal(got, one), rounds
+    assert [tuple(t.shape) for t in low.inputs()] == [
+        (60, nbits // 32), (e_max,), (e_max,), (e_max,)]
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_closure_2d_refuses_bad_word_shards(mesh):
+    """``ValueError`` (the reference asserts) where ``word_shards`` does
+    not divide the rank count (the words' case needs more ranks:
+    ``test_torch_dryrun.py``)."""
+    with pytest.raises(ValueError, match="ranks"):
+        distributed.lower_distributed_closure_2d(mesh, 60, 8, 64, 2,
+                                                 word_shards=2)
+    with pytest.raises(ValueError, match="ranks"):
+        distributed.lower_distributed_closure_2d(mesh, 60, 8, 64, 2,
+                                                 word_shards=0)
 
 
 @pytest.mark.slow

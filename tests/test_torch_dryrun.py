@@ -235,3 +235,83 @@ def test_lowered_closure_equals_distributed_closure(mesh1):
     assert [tuple(t.shape) for t in lowered.inputs()] == [
         (60, 2), (ed.local.shape[1],), (ed.local.shape[1],),
         (ed.local.shape[1],)]
+
+
+# the reference's figures at this size on 8 host devices (a 1-axis mesh:
+# XLA's count of the 1-D gather on a 2-axis mesh is 1.5x, 983,040)
+TDR_SMALL = dict(n_vertices=4096, n_edges=16384, vtx_bits=256, rounds=4)
+TDR_BYTES = {"tdr-1d": 655_360, "tdr-2d-w4": 163_840, "tdr-2d": 81_920}
+
+
+@pytest.fixture(scope="module")
+def tdr_variants():
+    """The three tdr-* iterations on a fake 2x4 mesh (8 ranks) at V =
+    4,096, 256 bits and 4 rounds, and the 2-D lowering's refusal of 8
+    word shards on a 64-bit row, in one subprocess."""
+    code = f"""
+import json, torch
+torch.set_num_threads(1)
+from repro_torch import distributed
+from repro_torch.configs.tdr_graph import TDRGraphConfig
+from repro_torch.launch import dryrun, perf
+dryrun.init_fake_world(8)
+g = TDRGraphConfig(**{TDR_SMALL!r})
+out = {{it: perf.run_tdr_variant(*perf.TDR_ITERATIONS[it], device="cpu",
+                                 mesh_shape=(2, 4), gcfg=g)
+        for it in perf.TDR_ITERATIONS}}
+mesh = distributed.ShardMesh(device="cpu")
+try:
+    distributed.lower_distributed_closure_2d(mesh, 4096, 1000, 64, 4)
+except ValueError as e:
+    out["refused"] = str(e)
+print(json.dumps(out))
+"""
+    return json.loads(_run(code).strip().splitlines()[-1])
+
+
+def test_tdr_variant_gather_bytes_match_the_hlo_count(tdr_variants):
+    """Counted all-gather bytes per rank of the 1-D closure and of the
+    2-D closure at 4 and 8 word shards equal ``repro.utils.hlo``'s count
+    of the reference's lowerings compiled on 8 host devices:
+    ``(rounds + 1) × V × (W / word_shards) × 4``."""
+    code = f"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import json, jax, numpy as np
+from jax.sharding import Mesh
+from repro.core import distributed
+from repro.utils import hlo
+mesh = Mesh(np.array(jax.devices()), ("data",))
+s = {TDR_SMALL!r}
+args = (mesh, s["n_vertices"], 1000, s["vtx_bits"], s["rounds"])
+low = {{"tdr-1d": distributed.lower_distributed_closure(*args),
+       "tdr-2d-w4": distributed.lower_distributed_closure_2d(
+           *args, word_shards=4),
+       "tdr-2d": distributed.lower_distributed_closure_2d(
+           *args, word_shards=8)}}
+print(json.dumps({{k: dict(hlo.analyze(v.compile().as_text()).collectives)
+                  for k, v in low.items()}}))
+"""
+    ref = json.loads(_run(code).strip().splitlines()[-1])
+    for it, want in TDR_BYTES.items():
+        got = tdr_variants[it]["hlo"]
+        assert ref[it] == {"all-gather": want}, it
+        assert got["collectives"] == {"all-gather": want}, it
+        assert got["collective_bytes_per_chip"] == want, it
+
+
+def test_tdr_variant_records_keep_the_reference_schema(tdr_variants):
+    for it in TDR_BYTES:
+        rec = tdr_variants[it]
+        assert set(rec) == {"cell", "variant", "compile_s", "memory", "hlo",
+                            "roofline"}, it
+        assert (rec["cell"], rec["variant"]) == (
+            "tdr-graph", "1d" if it == "tdr-1d" else "2d")
+        assert set(rec["memory"]) == {"temp_gb", "argument_gb"}
+        assert set(rec["hlo"]) == {"flops_per_chip", "hbm_bytes_per_chip",
+                                   "collective_bytes_per_chip",
+                                   "collectives"}
+        assert rec["hlo"]["flops_per_chip"] == 0.0
+        assert rec["roofline"]["model_flops"] == 16384 * 8 * 4
+    assert "does not divide the 2 words" in tdr_variants["refused"]

@@ -232,7 +232,8 @@ def test_sharded_entry_points_refuse_the_cpu_by_default(entry):
 
 
 @pytest.mark.parametrize("entry", ["make_production_mesh", "run_cell",
-                                   "run_tdr_cell", "perf"])
+                                   "run_tdr_cell", "perf",
+                                   "run_tdr_variant"])
 def test_mesh_entry_points_refuse_the_cpu_by_default(entry):
     """The production mesh and the dry-run default to the card; the mesh
     is made on the CPU when asked to (and then wants its 256 ranks)."""
@@ -243,7 +244,8 @@ def test_mesh_entry_points_refuse_the_cpu_by_default(entry):
             "run_cell": lambda: dryrun.run_cell(
                 "phi3-mini-3.8b", "decode_32k", "single"),
             "run_tdr_cell": lambda: dryrun.run_tdr_cell("single"),
-            "perf": lambda: perf.main(["--iter", "rwkv-dp"])}[entry]
+            "perf": lambda: perf.main(["--iter", "rwkv-dp"]),
+            "run_tdr_variant": lambda: perf.run_tdr_variant(True)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     if entry == "make_production_mesh":

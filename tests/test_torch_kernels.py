@@ -27,6 +27,16 @@ B3_SHAPES = [(96, 3, 5, 8, 1, 90), (64, 4, 2, 8, 1, 128),
              (37, 5, 3, 4, 2, 150), (200, 8, 32, 8, 1, 250)]
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its ops are small, and parallel
+    test workers then do not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a: np.ndarray, device="cpu") -> torch.Tensor:
     return bitset.np_to_words(a, device)
 
@@ -108,6 +118,20 @@ def test_bitset_matmul_plain_matches_reference(m, k, w, density):
         want_kernel = np.asarray(rops.frontier_step(
             jnp.asarray(a), jnp.asarray(x), mode="interpret"))
         np.testing.assert_array_equal(got, want_kernel)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("m,k,w", [(8, 32, 1), (50, 96, 3), (70, 64, 33),
+                                   (130, 256, 5)])
+def test_frontier_step_mxu_matches_reference(m, k, w):
+    """The unpacked bf16 lowering equals the reference's and the packed
+    product bit for bit."""
+    a, x = _b1_inputs(m, k, w, 0.3, seed=m + k + w)
+    got = _np(ops.frontier_step_mxu(_t(a), _t(x)))
+    want = np.asarray(rops.frontier_step_mxu(jnp.asarray(a),
+                                             jnp.asarray(x)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _np(ops.frontier_step(_t(a), _t(x))))
 
 
 def test_frontier_step_is_one_bfs_round():

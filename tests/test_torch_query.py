@@ -6,6 +6,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import (dfs_baseline as RD, graph as RG, lcr as RL,
                         pattern as RP, tdr_build as RB, tdr_query as RQ)
@@ -17,6 +18,16 @@ BACKENDS = ("segment", "matmul")
 STAT_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
                "exact_jobs", "corridor_active", "corridor_total",
                "saturated_chunks", "exact_rounds", "exact_qids")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its ops are small, and parallel
+    test workers then do not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _specs(rng, n_vertices, n_labels, n):
@@ -79,7 +90,7 @@ def test_answer_batch_matches_oracle_both_backends(seed, kind):
 
 @pytest.mark.parametrize("seed", [1, 7])
 @pytest.mark.parametrize("kind", ["er", "pa"])
-@pytest.mark.parametrize("mode", ["auto", "compact", "full"])
+@pytest.mark.parametrize("mode", ["auto", "compact", "full", "legacy"])
 def test_exact_modes_bit_equal(seed, kind, mode):
     """Every exact mode on both backends equals the oracle, and its
     QueryStats (phase-1 counts, corridor sizes, phase-2 rounds) equal the
@@ -105,13 +116,91 @@ def test_self_cycle_queries_exact(backend):
                                   (3, 4, 1)])
     idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
                                 device="cpu")
-    for mode in ("auto", "compact", "full"):
+    for mode in ("auto", "compact", "full", "legacy"):
         assert tdr_query.answer(idx, 0, 0, pattern.all_of([0, 1]),
                                 exact_mode=mode, backend=backend,
                                 device="cpu") is True
         assert tdr_query.answer(idx, 3, 3, pattern.all_of([1]),
                                 exact_mode=mode, backend=backend,
                                 device="cpu") is False
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("seed", [2, 9])
+def test_legacy_on_matmul_matches_the_oracle(seed):
+    """The legacy leg of the reference's pallas bit-equality test: the
+    one-directional executor on ``matmul`` (one B1 product per label class
+    per round on the reverse class stack) equals the DFS oracle, the
+    reference's pallas legacy run and the port's segment form, rounds
+    included."""
+    rg, ridx, g, idx, specs, want = _case("pa", 40, 2.5, seed, 15)
+    rst = RQ.QueryStats()
+    ref = RQ.answer_batch(ridx, _patterns(RP, specs, 4), backend="pallas",
+                          exact_mode="legacy", stats=rst)
+    assert ref.tolist() == want
+    stats = {}
+    for backend in BACKENDS:
+        st = tdr_query.QueryStats()
+        got = tdr_query.answer_batch(idx, _patterns(pattern, specs, 4),
+                                     backend=backend, exact_mode="legacy",
+                                     stats=st, device="cpu")
+        assert got.tolist() == want, backend
+        stats[backend] = _stats_tuple(st)
+    assert stats["matmul"] == stats["segment"] == _stats_tuple(rst)
+    assert rst.exact_jobs > 0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_legacy_falls_back_when_class_set_blows_cap():
+    """The legacy leg of the reference's class-set cap test: a cap that
+    fits the adjacency but not the C+1 class matrices warns on the CPU
+    and runs the segment form, with the same answers and rounds."""
+    g = G.erdos_renyi(40, 2.5, 6, seed=3)
+    rg = RG.erdos_renyi(40, 2.5, 6, seed=3)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    ridx = RB.build_index(rg, RB.TDRConfig(**CFG))
+    specs = _specs(np.random.default_rng(3), 40, 6, 15)
+    want = RQ.answer_batch(ridx, _patterns(RP, specs, 6), backend="segment",
+                           exact_mode="legacy").tolist()
+    cap = 2 * g.n_vertices * bitset.n_words(g.n_vertices) * 4
+    ecfg = engine.EngineConfig(backend="matmul", max_dense_bytes=cap)
+    st, st_seg = tdr_query.QueryStats(), tdr_query.QueryStats()
+    with pytest.warns(engine.DenseCapWarning, match="segment path"):
+        got = tdr_query.answer_batch(idx, _patterns(pattern, specs, 6),
+                                     engine_config=ecfg, stats=st,
+                                     exact_mode="legacy", device="cpu")
+    assert idx.engine(config=ecfg).backend == "matmul"
+    seg = tdr_query.answer_batch(idx, _patterns(pattern, specs, 6),
+                                 backend="segment", stats=st_seg,
+                                 exact_mode="legacy", device="cpu")
+    assert got.tolist() == seg.tolist() == want
+    assert st.exact_rounds == st_seg.exact_rounds > 0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_legacy_ignores_pin_m_and_refuses_wide_terms():
+    """A legacy chunk runs at the plan's whole state width, so a serving
+    pin changes nothing; five required labels fit its 32 states, six do
+    not, with the reference's message."""
+    rg, ridx, g, idx, specs, want = _case("er", 45, 2.3, 1, 20)
+    kw = dict(exact_mode="legacy", device="cpu")
+    plan = tdr_query.compile_queries(idx, _patterns(pattern, specs, 4))
+    st0, st1 = tdr_query.QueryStats(), tdr_query.QueryStats()
+    a0 = tdr_query.answer_plan(idx, plan, stats=st0, exact_mode="legacy")
+    a1 = tdr_query.answer_plan(idx, plan, stats=st1, exact_mode="legacy",
+                               pin_m=1)
+    assert a0.tolist() == a1.tolist() == want
+    assert _stats_tuple(st0) == _stats_tuple(st1)
+    g6 = G.erdos_renyi(30, 3.0, 6, seed=1)
+    idx6 = tdr_build.build_index(g6, tdr_build.TDRConfig(**CFG),
+                                 device="cpu")
+    five = [(0, 1, pattern.all_of([0, 1, 2, 3, 4]))]
+    assert tdr_query.answer_batch(idx6, five, max_m=5, **kw).tolist() == [
+        dfs_baseline.answer_pcr(g6, 0, 1, five[0][2])]
+    with pytest.raises(ValueError, match="max_m=6"):
+        tdr_query.answer_batch(
+            idx6, [(0, 1, pattern.all_of([0, 1, 2, 3, 4, 5]))], max_m=6,
+            **kw)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -55,6 +55,16 @@ WAIT_S = 60
 
 
 @pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its ops are small, and parallel
+    test workers then do not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
 def servers():
     """Register each server a test makes; every one is stopped (without
     draining) and detached from its log at teardown, so one failure
@@ -419,6 +429,53 @@ def test_mixed_kind_load_no_recompile(servers):
         srv.submit(*multi, kind="count", hops=2)
     with pytest.raises(ValueError, match="kind"):
         srv.submit(u, v, p, kind="fuzzy")
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("backend", ["segment", "matmul"])
+def test_legacy_server_answers_every_kind(servers, backend):
+    """``exact_mode="legacy"`` on a server: bool requests run the legacy
+    executor, the other kinds (whose executors refuse it) run "full".
+    Bool, dist and rpq answers equal direct calls in those modes, the
+    oracles and the JAX package's server in the same config."""
+    ridx, g, idx = _served()
+    pool, rpool = _query_pool(pat, g, 31, n=12), _query_pool(RP, g, 31, n=12)
+    texts = ["(l0 | l1)*", "l0 . (l1 | l2)*", "l3 . l0", "(l1 | l2)+"]
+    rq = [(i, (5 * i + 3) % 40, rpq.parse(t)) for i, t in enumerate(texts)]
+    rrq = [(u, v, RR.parse(t)) for (u, v, _), t in zip(rq, texts)]
+    srv = servers(serve.QueryServer(idx, backend=backend,
+                                    exact_mode="legacy", max_wait_ms=1.0))
+    rsrv = rserve.QueryServer(ridx, backend=REF_BACKEND[backend],
+                              exact_mode="legacy", max_wait_ms=1.0)
+    assert srv._kind_mode() == rsrv._kind_mode() == "full"
+    assert srv._kind_mode("bool") == "legacy"
+    got = {}
+    for name, server, qs, rqs in (("port", srv, pool, rq),
+                                  ("reference", rsrv, rpool, rrq)):
+        server.start()
+        try:
+            server.warmup(qs[:4])
+            futs = [server.submit(*q) for q in qs]
+            futs += [server.submit(*q, kind="dist") for q in qs]
+            futs += [server.submit(*q, kind="rpq") for q in rqs]
+            got[name] = [f.result(timeout=WAIT_S) for f in futs]
+        finally:
+            server.stop()
+    n = len(pool)
+    kw = dict(backend=backend, device="cpu")
+    want = (tdr_query.answer_batch(idx, pool, exact_mode="legacy",
+                                   **kw).tolist()
+            + tdr_query.dist_batch(idx, pool, exact_mode="full",
+                                   **kw).tolist()
+            + tdr_query.rpq_batch(idx, rq, exact_mode="full", **kw).tolist())
+    assert [bool(a) for a in got["port"][:n]] == want[:n]
+    assert [int(d) for d in got["port"][n:2 * n]] == want[n:2 * n]
+    assert [bool(a) for a in got["port"][2 * n:]] == want[2 * n:]
+    assert got["port"] == got["reference"]
+    assert want[:n] == [dfs_baseline.answer_pcr(g, u, v, p)
+                        for u, v, p in pool]
+    assert want[2 * n:] == [dfs_baseline.answer_rpq(g, u, v, r)
+                            for u, v, r in rq]
 
 
 def test_plan_cache_hits():

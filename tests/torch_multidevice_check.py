@@ -18,9 +18,19 @@ The ranks import no JAX.  Each asserts:
 * ``answer_batch(mesh=...)`` on both backends equals the DFS oracle, the
   reference's answers and the port's meshless answers, with equal
   ``QueryStats``, at several phase-2 chunks per batch (so compacted chunks
-  are dealt over the ranks);
+  are dealt over the ranks), and with ``exact_mode="legacy"``, whose
+  full-graph chunks all run on rank 0;
 * every payload that crosses ``engine.all_gather_words`` is an int32
-  ``[rows, W]`` block, never a bool or uint8 plane (a spy on the call).
+  ``[rows, W]`` block, never a bool or uint8 plane (a spy on the call);
+* the 2-D (vertex × word) closure ``lower_distributed_closure_2d`` at
+  the layouts 4×1, 2×2 and 1×4, at R = 2 and at the fixpoint's round
+  count, equals the JAX package's 2-D lowering compiled and run on 8
+  host devices (the parent sets ``XLA_FLAGS`` before it first imports
+  JAX; the result does not depend on the layout), block for block;
+* ``build_index`` and ``distributed_closure(row_budget=2)`` on a 2×2
+  ``DeviceMesh`` (``ShardMesh.from_device_mesh``), once in rank order and
+  once with the mesh tensor transposed (shard s is then not rank s),
+  equal the single-device results.
 
 With ``--card``, the ranks share ``cuda:0`` on ``gloo`` (NCCL refuses two
 ranks on one device) and no JAX is imported anywhere:
@@ -55,7 +65,10 @@ CARD_GRAPH = ("er", 301, 3.0, 6, 1)   # --card: V odd, so a padding row
 ARRAYS = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in", "push",
           "pop", "g_count")
 BUDGETS = (None, 1, 3, 64)
-MODES = ("auto", "compact")
+BITS_2D = 128                          # 4 words: 1, 2 and 4 word shards
+LAYOUTS_2D = ((4, 1), (2, 2), (1, 4))  # (vtx, word) shards on 4 ranks
+REF_2D = (8, 4)                        # the reference's devices, word shards
+MODES = ("auto", "compact", "legacy")
 EXACT_CHUNK = 4
 N_QUERIES = 24
 STAT_FIELDS = ("n_queries", "n_jobs", "filter_false", "filter_true",
@@ -83,9 +96,16 @@ def stat_dict(st) -> dict:
 
 
 def reference(path: str) -> None:
-    """The JAX package's single-device results, saved to ``path``."""
+    """The JAX package's single-device results and its 2-D closure on 8
+    host devices, saved to ``path``."""
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                               f"{REF_2D[0]} " + os.environ.get(
+                                   "XLA_FLAGS", ""))
+    import jax
     import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.core import distributed as RDist
     from repro.core import (dfs_baseline as RD, graph as RG,
                             pattern as RP, tdr_build as RB,
                             tdr_query as RQ)
@@ -105,6 +125,25 @@ def reference(path: str) -> None:
     qs = mixed_queries(RP, np.random.default_rng(0), g, N_QUERIES)
     out["oracle"] = np.array([RD.answer_pcr(g, u, v, p) for u, v, p in qs])
     out["answers"] = RQ.answer_batch(ref, qs, backend="segment")
+
+    # the 2-D closure of 128-bit seeds at R = 2 and the fixpoint's rounds
+    words2 = RB._vertex_bit_words(RB.TDRConfig(**dict(CFG, vtx_bits=BITS_2D)),
+                                  disc)
+    _, fix = eng.closure(eng.propagate(jnp.asarray(words2)))
+    n_dev, ws = REF_2D
+    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("d",))
+    v_pad, ed = RDist.partition_graph(g, n_dev // ws)
+    rows = RDist._pad_to(words2, v_pad).reshape(n_dev // ws, -1,
+                                                words2.shape[1])
+    out["seed_words_2d"] = words2
+    out["rounds_2d"] = np.array([2, int(fix)])
+    for rounds in out["rounds_2d"].tolist():
+        low = RDist.lower_distributed_closure_2d(
+            mesh, n, ed.local.shape[1], BITS_2D, rounds, word_shards=ws)
+        res = low.compile()(jnp.asarray(rows), jnp.asarray(ed.local),
+                            jnp.asarray(ed.remote), jnp.asarray(ed.valid))
+        out[f"closure_2d_{rounds}"] = np.asarray(res).reshape(
+            v_pad, -1)[:n]
     np.savez(path, **out)
 
 
@@ -172,10 +211,72 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
           f"reference and the meshless answers ({dealt} compacted chunks)",
           file=sys.stderr)
 
+    check_2d(rank, g, ref, mesh)
+    check_device_meshes(rank, g, cfg, ref)
+
     bad = [p for p in payloads if p != (torch.int32, 2)]
     assert payloads and not bad, f"gathered payloads {sorted(set(bad))}"
     print(json.dumps({"rank": rank, "gathers": len(payloads)}), flush=True)
     dist.destroy_process_group()
+
+
+def check_2d(rank: int, g, ref, mesh) -> None:
+    """The port's 2-D closure at every layout of ``LAYOUTS_2D`` equals the
+    reference's on this rank's (vertex, word) block."""
+    import torch
+    from repro_torch import bitset, distributed
+    words = ref["seed_words_2d"]
+    n = g.n_vertices
+    for v_sh, w_sh in LAYOUTS_2D:
+        v_pad, ed = distributed.partition_graph(g, v_sh)
+        for rounds in ref["rounds_2d"].tolist():
+            low = distributed.lower_distributed_closure_2d(
+                mesh, n, ed.local.shape[1], BITS_2D, rounds,
+                word_shards=w_sh)
+            vi, wi = low.coords
+            rows = slice(vi * low.per_v, (vi + 1) * low.per_v)
+            cols = slice(wi * low.per_w, (wi + 1) * low.per_w)
+            got = low(
+                bitset.np_to_words(
+                    distributed._pad_to(words, v_pad)[rows, cols], "cpu"),
+                torch.from_numpy(ed.local[vi].astype(np.int64)),
+                torch.from_numpy(ed.remote[vi].astype(np.int64)),
+                torch.from_numpy(ed.valid[vi]))
+            want = distributed._pad_to(ref[f"closure_2d_{rounds}"],
+                                       v_pad)[rows, cols]
+            assert (low.v_shards, low.word_shards) == (v_sh, w_sh)
+            assert np.array_equal(got.numpy().view(np.uint32), want), \
+                f"2-D closure at {v_sh}x{w_sh}, R={rounds}"
+    print(f"[rank {rank}] 2-D closure equals the reference at "
+          f"{LAYOUTS_2D}, R={ref['rounds_2d'].tolist()}", file=sys.stderr)
+
+
+def check_device_meshes(rank: int, g, cfg, ref) -> None:
+    """``build_index`` and ``distributed_closure(row_budget=2)`` on a 2×2
+    ``DeviceMesh``, in rank order and transposed, equal the reference's
+    single-device results."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import distributed, tdr_build
+    grid = torch.arange(4).reshape(2, 2)
+    for name, tensor in (("rank order", grid), ("transposed", grid.T)):
+        dm = DeviceMesh("cpu", tensor.contiguous(),
+                        mesh_dim_names=("pod", "data"))
+        mesh = distributed.ShardMesh.from_device_mesh(dm)
+        order = tensor.flatten().tolist()
+        assert mesh.rank == order.index(rank), name
+        assert (mesh.gather_perm is None) == (order == sorted(order))
+        got = tdr_build.build_index(g, cfg, mesh=mesh)
+        for f in ARRAYS:
+            a = getattr(got, f).numpy()
+            assert np.array_equal(a.view(ref[f].dtype), ref[f]), (name, f)
+        assert got.fixpoint_rounds == int(ref["rounds"]), name
+        r = distributed.distributed_closure(g, ref["seed_words"], mesh,
+                                            row_budget=2)
+        assert np.array_equal(r.numpy().view(np.uint32), ref["closure"]), \
+            name
+    print(f"[rank {rank}] build_index and distributed_closure equal on a "
+          f"2x2 DeviceMesh, in rank order and transposed", file=sys.stderr)
 
 
 def card_rank_main(rank: int, world: int, tmp: str) -> None:
