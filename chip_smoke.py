@@ -36,7 +36,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 4. Semiring kinds on the same index: ``dist_batch`` over 128 queries
    (32 each of all_of / any_of / none_of / lcr over 2 random labels,
    ``default_rng(1)``) with the default backend, launch counts set to 0
-   just before and read just after (``lane_matmul`` must have run), then
+   just before and read just after (``lane_matmul`` must have run; the
+   lane widths W of its calls are printed), then
    with ``backend="segment"``: equal answers and rounds; 16 answers equal
    the BFS oracle; 4 ``witness`` paths replay through ``verify_witness``
    at the ``dist`` length; 4 ``count_routes`` at ``hops=6`` equal the
@@ -44,9 +45,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    ``ops.block_sparse_lane_matmul``, the entry points of the two kernels
    no query path calls yet, with their own launch counts.
 5. ``lane_matmul``, ``popcount_rows`` and ``block_sparse_lane_matmul``
-   against their plain versions (tolerance 0): B4 on the class matrix and
-   DIST16 plane of one ``dist_batch`` call (``min``), and at 4096 x 4096
-   for ``sum``/uint32 and ``or``/uint8; B5 on ``h_vtx`` as [rows, words];
+   against their plain versions (tolerance 0): B4 (``lane_rows``) on the
+   class matrix and DIST16 plane of one ``dist_batch`` call (``min``), in
+   the engine's lane rounds on the full forward adjacency
+   (``propagate(sr=COUNT)``, ``sum``/uint32 at W = 128, and a round of
+   ``closure(sr=DIST8)`` over 256 sources, ``min``/uint8 at W = 256; both
+   rounds on ``matmul`` equal ``segment``'s planes and rounds), and at
+   4096 x 4096 for ``sum``/uint32 and ``or``/uint8, each with one device
+   kernel a call under ``torch.profiler`` (rows 1-2 also timed on
+   an all-zero A, the stream of A alone);
+   B5 on ``h_vtx`` as [rows, words];
    B6 on the forward block adjacency with the same DIST16 plane, also
    against B4 on the decompressed matrix, and the device kernels one B6
    call launches (one without ONE blocks); ``torch.profiler`` gives the
@@ -243,6 +251,12 @@ N_COUNT = 4
 COUNT_HOPS = 6
 SPY_CALL = 200                 # the lane_matmul call whose operands B4/B6 use
 EXACT_CHUNK = 32
+LANE_WIDTH = 128               # B4's propagate(sr=COUNT) row: X [V, 128]
+LANE_SOURCES = 256             # B4's closure(sr=DIST8) row: X [V, 256]
+COUNT_APART = 9                # rows where propagate(sr=COUNT) on matmul
+                               # differs from segment on the smoke graph:
+                               # a pair's parallel edges count once there
+                               # (ROADMAP C, the reference does the same)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet non-tensor 32-bit rate
 KERNEL_REPS = 20
@@ -364,6 +378,24 @@ def profile(torch, fn):
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
     return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3,
                          e.count) for e in top], sum(e.count for e in evs)
+
+
+def profiled_kernels(torch, name: str, fn, want: int | None = None) -> int:
+    """Prints the kernel-only device time per launch over KERNEL_REPS
+    calls of ``fn``; returns the device kernels one call launched, the
+    profiler's count over the calls rounded (it may miss a few events it
+    traces, most often the first, and now and then a whole trace).  With
+    ``want``, a trace whose count is not ``want`` is taken again, up to
+    three traces in all; the caller checks the last one's count."""
+    for _ in range(3):
+        _, _, top, n_kernels = profile(torch, lambda: [
+            fn() for _ in range(KERNEL_REPS)])
+        print(f"{name} profiled: " + "; ".join(
+            f"{k} {1e3 * ms / n:.4f} us x{n}" for k, ms, n in top))
+        per_call = round(n_kernels / KERNEL_REPS)
+        if want is None or per_call == want:
+            break
+    return per_call
 
 
 def words_err(torch, got, want) -> int:
@@ -2387,6 +2419,172 @@ def tdr2d_phase(torch, g, idx, queries, answers, record,
     return None
 
 
+def lane_rows(torch, g, eng, eng_s, a_dist, x_dist, n_dist: int, record,
+              rows: list) -> str | None:
+    """Phase 5's B4 rows: ``lane_matmul`` at every shape the port runs it,
+    each against its plain version (tolerance 0) with the device kernels
+    one call launches (must be one).
+
+    1. The main-path operand: one ``dist_batch`` call's class matrix and
+       DIST16 plane (``a_dist``, ``x_dist``; ``n_dist`` launches).
+    2. ``eng.propagate(x, sr=COUNT)`` on the full forward adjacency of
+       ``g``, X uint32 [V, 128] from ``default_rng(4)`` (values <=
+       COUNT_CAP): one launch, equal to ``segment``'s on ``g`` with its
+       parallel edges merged (the packed adjacency holds one bit per
+       vertex pair; ``segment``'s sum counts each labelled edge), and
+       differing from ``segment`` on ``g`` itself in exactly COUNT_APART
+       rows, so that a change in that known difference shows; library time ``torch.sparse.mm`` of the adjacency as CSR by
+       float32 X.
+    3. ``eng.closure(base, sr=DIST8)`` over 256 sources (X uint8 [V, 256],
+       W > 128): one launch a round, plane and rounds equal to ``eng_s``'s;
+       the row is the middle round's call.  Its time per byte of A over
+       row 2's shows whether A is read once whatever W is.
+    4. ``sum``/uint32 and ``or``/uint8 at 4096 x 4096, W = 128, density
+       1/1024 (``default_rng(2)``), kept for continuity; no path runs
+       these shapes, so their rows count 0 launches.
+    Rows 1 and 2 are also timed on an all-zero A of their shape (the
+    stream of A and the output alone)."""
+    from repro_torch import bitset, engine, graph, semiring
+    from repro_torch.kernels import ops, ref
+    src = "src/repro_torch/kernels/csrc/lane_matmul.cu"
+    tpu = "src/repro/kernels/bitset_matmul.py:143"
+    dev = a_dist.device
+    if (eng.backend, eng_s.backend) != ("matmul", "segment"):
+        return (f"lane_rows needs a matmul and a segment engine, got "
+                f"{eng.backend} and {eng_s.backend}")
+    ok = True
+
+    def csr_mm(a, x):   # the library yardstick of a sum: CSR by float32
+        r, c = ref.set_bits(a)
+        a_csr = torch.sparse_coo_tensor(
+            torch.stack([r, c]), torch.ones(r.numel(), device=dev),
+            (a.shape[0], a.shape[1] * 32)).to_sparse_csr()
+        x_f = semiring.widen(x).to(torch.float32)
+        return lambda: torch.sparse.mm(a_csr, x_f)
+
+    def row(name, a, x, op, cap=0, lib_fn=None, n_launches=0):
+        a_r, a_c = ref.set_bits(a)
+        w, lb = x.shape[1], x.element_size()
+        want = ref.lane_matmul_ref(a, x, op=op, cap=cap)
+        good = record(
+            name, src, tpu, ops.frontier_step_lanes(a, x, op=op, cap=cap),
+            want, lambda: ops.frontier_step_lanes(a, x, op=op, cap=cap),
+            lambda: ref.lane_matmul_ref(a, x, op=op, cap=cap),
+            a.numel() * 4 + (int(a_c.unique().numel()) + a.shape[0]) * w * lb,
+            a.numel() + a_r.numel() * w, lib_fn=lib_fn,
+            n_launches=n_launches)
+        n_dev = profiled_kernels(
+            torch, name, lambda: ops.frontier_step_lanes(a, x, op=op,
+                                                         cap=cap), want=1)
+        print(f"{name}: A {tuple(a.shape)} with {a_r.numel()} set bits, X "
+              f"{tuple(x.shape)} {x.dtype}; one call launched {n_dev} "
+              f"device kernel(s)")
+        return good and n_dev == 1
+
+    def stream_floor(name, a, x, op, cap=0):
+        """B4 on an all-zero A of the same shape: the stream of A and the
+        output writes alone, no gather or fold."""
+        zero = torch.zeros_like(a)
+        t = time_ms(torch, lambda: ops.frontier_step_lanes(
+            zero, x, op=op, cap=cap), KERNEL_REPS)
+        print(f"{name} on an all-zero A (stream floor): {t:.4f} ms, "
+              f"{a.numel() * 4 / t / 1e9:.3f} TB/s of A")
+
+    ok &= row("lane_matmul[min,u16]", a_dist, x_dist, "min",
+              n_launches=n_dist)
+    stream_floor("lane_matmul[min,u16]", a_dist, x_dist, "min")
+
+    adj = eng.adjacency()
+    n = adj.shape[1] * 32
+    rng = np.random.default_rng(4)
+    x_np = rng.integers(0, semiring.COUNT_CAP + 1, (n, LANE_WIDTH))
+    x_cnt = torch.from_numpy(x_np.astype(np.uint32).view(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    ops.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = eng.propagate(x_cnt, sr=semiring.COUNT)
+    torch.cuda.synchronize()
+    prop_s = time.perf_counter() - t0
+    n_prop = ops.KERNEL_LAUNCHES["lane_matmul"]
+    pair = g.src.astype(np.int64) * g.n_vertices + g.indices
+    _, first = np.unique(pair, return_index=True)
+    merged = graph.Graph.from_edges(g.n_vertices, g.n_labels, zip(
+        g.src[first].tolist(), g.indices[first].tolist(),
+        g.labels[first].tolist()))
+    same = torch.equal(got, engine.make_engine(
+        merged, backend="segment", device=dev).propagate(
+            x_cnt, sr=semiring.COUNT))
+    apart = int((got != eng_s.propagate(x_cnt, sr=semiring.COUNT)).any(
+        dim=1).sum())
+    print(f"propagate(sr=COUNT)[{eng.backend}]: {prop_s * 1e3:.3f} ms, "
+          f"{n_prop} lane_matmul launch(es); equals segment on the graph "
+          f"with its {g.n_edges - first.size} parallel edges merged: "
+          f"{same}; rows that differ from segment counting them apart: "
+          f"{apart}")
+    if not same or n_prop != 1:
+        return "propagate(sr=COUNT) differs from segment or missed B4"
+    if apart != COUNT_APART:
+        return (f"propagate(sr=COUNT) differs from segment in {apart} rows, "
+                f"not the {COUNT_APART} of the known multigraph difference")
+    ok &= row("lane_matmul[sum,u32,propagate]", adj, x_cnt, "sum",
+              semiring.COUNT_CAP, lib_fn=csr_mm(adj, x_cnt),
+              n_launches=n_prop)
+    t_prop = rows[-1]["ms"]
+    stream_floor("lane_matmul[sum,u32,propagate]", adj, x_cnt, "sum",
+                 semiring.COUNT_CAP)
+
+    base_np = np.full((n, LANE_SOURCES), semiring.DIST8.zero, np.uint8)
+    base_np[rng.choice(n, LANE_SOURCES, replace=False),
+            np.arange(LANE_SOURCES)] = 0
+    base = torch.from_numpy(base_np).to(dev)
+    calls = []
+    lanes_fn = ops.frontier_step_lanes
+
+    def spy(a, x, **kw):   # observes each call's operand; computes nothing
+        calls.append(x)
+        return lanes_fn(a, x, **kw)
+
+    torch.cuda.synchronize()
+    ops.frontier_step_lanes = spy
+    ops.KERNEL_LAUNCHES.clear()
+    try:
+        t0 = time.perf_counter()
+        plane, rounds = eng.closure(base, sr=semiring.DIST8)
+        torch.cuda.synchronize()
+        clo_s = time.perf_counter() - t0
+    finally:
+        ops.frontier_step_lanes = lanes_fn
+    n_clo = ops.KERNEL_LAUNCHES["lane_matmul"]
+    plane_s, rounds_s = eng_s.closure(base, sr=semiring.DIST8)
+    same = torch.equal(plane, plane_s) and rounds == rounds_s
+    print(f"closure(sr=DIST8)[{eng.backend}] over {LANE_SOURCES} sources: "
+          f"{clo_s:.3f} s, {rounds} rounds (segment {rounds_s}), {n_clo} "
+          f"lane_matmul launches; equals segment: {same}")
+    if not same or n_clo != rounds:
+        return "closure(sr=DIST8) differs from segment or missed B4"
+    ok &= row("lane_matmul[min,u8,closure]", adj, calls[len(calls) // 2],
+              "min", n_launches=n_clo)
+    print(f"B4 time per byte of A: closure (W={LANE_SOURCES}, uint8) over "
+          f"propagate (W={LANE_WIDTH}, uint32) = "
+          f"{rows[-1]['ms'] / t_prop:.3f} (same A)")
+    del calls, plane, plane_s, got
+
+    rng = np.random.default_rng(2)
+    a_sq = bitset.np_to_words(bitset.pack_bits_np(
+        rng.random((4096, 4096)) < 1 / 1024), dev)
+    for op, np_dt, cap in (("sum", np.uint32, semiring.COUNT_CAP),
+                           ("or", np.uint8, 0)):
+        hi = cap if op == "sum" else 255
+        x_np = rng.integers(0, hi + 1, (4096, 128)).astype(np_dt)
+        x_sq = torch.from_numpy(x_np.view(
+            np.int32 if np_dt == np.uint32 else np.uint8)).to(dev)
+        ok &= row(f"lane_matmul[{op},u{8 * x_sq.element_size()},4096]",
+                  a_sq, x_sq, op, cap,
+                  lib_fn=csr_mm(a_sq, x_sq) if op == "sum" else None,
+                  n_launches=0)
+    return None if ok else "lane_matmul disagrees with its plain version"
+
+
 def make_record(torch, rows: list, launches: dict):
     """A function that checks one kernel call against its plain version
     (tolerance 0), times the kernel, the plain version and the library
@@ -2511,16 +2709,6 @@ def smoke(torch, background: dict) -> int:
 
     record = make_record(torch, rows, launches)
 
-    def print_profiled(name, fn):
-        """Kernel-only device time per launch over KERNEL_REPS calls;
-        returns the device kernels one call launched (the profiler may
-        miss the first kernel it traces, hence the rounding)."""
-        _, _, top, n_kernels = profile(torch, lambda: [
-            fn() for _ in range(KERNEL_REPS)])
-        print(f"{name} profiled: " + "; ".join(
-            f"{k} {1e3 * ms / n:.4f} us x{n}" for k, ms, n in top))
-        return round(n_kernels / KERNEL_REPS)
-
     ok = True
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(f"single-launch floor (one 4-byte zero_, same timing): "
@@ -2636,8 +2824,8 @@ def smoke(torch, background: dict) -> int:
             bs_bytes, x.numel() + live_bits * w + n_one_live * bcomp.br * w,
             lambda: torch.matmul(a_unp_c, x_unp), n_launches=n_launches,
             err=err)
-        print_profiled(f"block_sparse_matmul[{label}]",
-                       lambda: ops.frontier_step_sparse(bcomp, x))
+        profiled_kernels(torch, f"block_sparse_matmul[{label}]",
+                         lambda: ops.frontier_step_sparse(bcomp, x))
         return good
 
     for label, bcomp, x in frontiers:
@@ -2698,10 +2886,12 @@ def smoke(torch, background: dict) -> int:
     dq = make_queries(pattern, g.n_vertices, g.n_labels, seed=1,
                       per_family=N_DIST_PER_FAMILY)
     spied = {"n": 0}
+    lanes_w = collections.Counter()    # lane width W of each B4 call
     lanes_fn = ops.frontier_step_lanes
 
     def spy(a, x, **kw):   # observes one call's operands; computes nothing
         spied["n"] += 1
+        lanes_w[x.shape[1]] += 1
         if spied["n"] == SPY_CALL or "a" not in spied:
             spied["a"], spied["x"] = a, x
         return lanes_fn(a, x, **kw)
@@ -2726,6 +2916,9 @@ def smoke(torch, background: dict) -> int:
         return fail(f"distances have shape {dists.shape} {dists.dtype}")
     if dist_launches.get("lane_matmul", 0) <= 0:
         return fail("lane_matmul was not launched by dist_batch")
+    print(f"dist_batch lane_matmul calls by lane width W: "
+          f"{dict(sorted(lanes_w.items()))} (W > 128 in "
+          f"{sum(n for w, n in lanes_w.items() if w > 128)})")
     dstats_s = tdr_query.QueryStats()
     t0 = time.perf_counter()
     dists_s = tdr_query.dist_batch(idx, dq, exact_chunk=EXACT_CHUNK,
@@ -2801,48 +2994,10 @@ def smoke(torch, background: dict) -> int:
           f"set bits, X {tuple(x_dist.shape)} {x_dist.dtype} with "
           f"{int((semiring.widen(x_dist) < semiring.DIST16.inf).sum())} "
           f"finite lanes")
-    ok &= record(
-        "lane_matmul[min,u16]", "src/repro_torch/kernels/csrc/lane_matmul.cu",
-        "src/repro/kernels/bitset_matmul.py:143",
-        ops.frontier_step_lanes(a_dist, x_dist, op="min"),
-        ref.lane_matmul_ref(a_dist, x_dist, op="min"),
-        lambda: ops.frontier_step_lanes(a_dist, x_dist, op="min"),
-        lambda: ref.lane_matmul_ref(a_dist, x_dist, op="min"),
-        a_dist.numel() * 4 + (int(a_cols.unique().numel())
-                              + a_dist.shape[0]) * w_d * lanes_b,
-        a_dist.numel() + a_rows.numel() * w_d,
-        n_launches=dist_launches.get("lane_matmul", 0))
-    rng = np.random.default_rng(2)
-    a_sq = bitset.np_to_words(bitset.pack_bits_np(
-        rng.random((4096, 4096)) < 1 / 1024), dev)
-    sq_rows, sq_cols = ref.set_bits(a_sq)
-    a_csr = torch.sparse_coo_tensor(
-        torch.stack([sq_rows, sq_cols]),
-        torch.ones(sq_rows.numel(), device=dev), (4096, 4096)).to_sparse_csr()
-    for op, np_dt, cap in (("sum", np.uint32, semiring.COUNT_CAP),
-                           ("or", np.uint8, 0)):
-        hi = cap if op == "sum" else 255
-        x_np = rng.integers(0, hi + 1, (4096, 128)).astype(np_dt)
-        x_sq = torch.from_numpy(x_np.view(
-            np.int32 if np_dt == np.uint32 else np.uint8)).to(dev)
-        lib = None
-        if op == "sum":   # the unsaturated sum: one CSR product in float32
-            x_f = semiring.widen(x_sq).to(torch.float32)
-            lib = (lambda x_f=x_f: torch.sparse.mm(a_csr, x_f))
-        ok &= record(
-            f"lane_matmul[{op},u{8 * x_sq.element_size()},4096]",
-            "src/repro_torch/kernels/csrc/lane_matmul.cu",
-            "src/repro/kernels/bitset_matmul.py:143",
-            ops.frontier_step_lanes(a_sq, x_sq, op=op, cap=cap),
-            ref.lane_matmul_ref(a_sq, x_sq, op=op, cap=cap),
-            lambda x_sq=x_sq, op=op, cap=cap: ops.frontier_step_lanes(
-                a_sq, x_sq, op=op, cap=cap),
-            lambda x_sq=x_sq, op=op, cap=cap: ref.lane_matmul_ref(
-                a_sq, x_sq, op=op, cap=cap),
-            a_sq.numel() * 4 + (int(sq_cols.unique().numel()) + 4096)
-            * 128 * x_sq.element_size(),
-            a_sq.numel() + sq_rows.numel() * 128, lib_fn=lib,
-            n_launches=dist_launches.get("lane_matmul", 0))
+    msg = lane_rows(torch, g, eng, idx_s.engine("segment"), a_dist, x_dist,
+                    dist_launches.get("lane_matmul", 0), record, rows)
+    if msg:
+        return fail(msg)
     ok &= record(
         "popcount_rows", "src/repro_torch/kernels/csrc/popcount.cu",
         "src/repro/kernels/popcount.py:17",
@@ -2850,7 +3005,7 @@ def smoke(torch, background: dict) -> int:
         lambda: ops.popcount(h_rows), lambda: ref.popcount_rows_ref(h_rows),
         h_rows.numel() * 4 + h_rows.shape[0] * 4, h_rows.numel() * 2,
         n_launches=aux_launches.get("popcount_rows", 0))
-    print_profiled("popcount_rows", lambda: ops.popcount(h_rows))
+    profiled_kernels(torch, "popcount_rows", lambda: ops.popcount(h_rows))
     b6 = ops.block_sparse_lane_matmul(comp, x_dist, op="min")
     b6_plain = ref.block_sparse_lane_matmul_ref(comp, x_dist, op="min")
     b4_dense = ops.frontier_step_lanes(
@@ -2893,13 +3048,14 @@ def smoke(torch, background: dict) -> int:
         b6_bytes, n_bits6 * w_d + n_one6 * comp.br * w_d,
         n_launches=aux_launches.get("block_sparse_lane_matmul", 0),
         err=max(words_err(torch, b6, b6_plain), b4_err))
-    n_dev6 = print_profiled(
-        "block_sparse_lane_matmul[min,u16]",
-        lambda: ops.block_sparse_lane_matmul(comp, x_dist, op="min"))
+    n_dev6 = profiled_kernels(
+        torch, "block_sparse_lane_matmul[min,u16]",
+        lambda: ops.block_sparse_lane_matmul(comp, x_dist, op="min"),
+        want=2 if n_one6 else 1)
     print(f"block_sparse_lane_matmul: one call launched {n_dev6} device "
           f"kernel(s)")
     ok &= n_dev6 == (2 if n_one6 else 1)
-    del b6, b6_plain, b4_dense, a_csr
+    del b6, b6_plain, b4_dense
     if not ok:
         return fail("a semiring kernel disagrees with its plain version")
 
@@ -2936,6 +3092,11 @@ def smoke(torch, background: dict) -> int:
         print(f"profile {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"({100 * (1 - busy / wall):.1f}% idle); top device time: "
               + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top))
+        if what == "dist_batch":
+            b4 = [(ms, n) for k, ms, n in top if "lane_matmul" in k]
+            print("profile dist_batch: lane_matmul " + (
+                f"{b4[0][0]:.3f} ms device time over {b4[0][1]} launches"
+                if b4 else "not among the top kernels"))
 
     # ---- 7. live index: updates, answers on the new graph, durability ---
     msg = live_index_phase(torch, g, cfg, idx, idx_s, seg_cfg, queries,

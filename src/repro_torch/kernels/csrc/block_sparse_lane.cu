@@ -52,8 +52,10 @@
 //     (read, fold, write: a sub-group's lanes own disjoint chunks, so no
 //     atomics).  Folds run on packed lanes (__vminu2 / __vminu4 for min,
 //     __vaddus2 / __vaddus4 then a min with cap for sum, a 64-bit add and
-//     clamp for uint32 sum, | for or); the scalar path folds widened lanes
-//     with lane_ops.cuh's fold.  At the end of a group the tiles of all
+//     clamp for uint32 sum, | for or); the scalar path folds widened
+//     lanes.  These folds and the chunk loads and stores (fold_packed,
+//     fold_chunk, load_chunk, store_chunk) live in lane_ops.cuh, shared
+//     with lane_matmul.cu.  At the end of a group the tiles of all
 //     sub-groups fold into the output rows.  ONE entries, split over the
 //     sub-groups, set the value the tiles start from.  Rows at or past V
 //     are never gathered, so the caller pads nothing; nothing carries
@@ -78,75 +80,12 @@ namespace {
 using namespace tdr_lane;
 
 constexpr int kWarps = 4;        // row-blocks per block of the product
-constexpr int kChunk = 4;        // 32-bit words of a lane's chunk of a row
 constexpr int kBatch = 4;        // list words a sub-group has in flight
 constexpr int kGroupWords = 8;   // pool words of an entry taken at once
 constexpr int kGroupRows = 8;    // block rows a warp folds at once
 constexpr int kListCap = 32 * kGroupWords;
 constexpr int kColThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
-
-// cap in every lane of a packed word
-template <typename T>
-__device__ __forceinline__ uint32_t replicate(uint32_t cap) {
-  if (sizeof(T) == 1) return (cap & 0xffu) * 0x01010101u;
-  if (sizeof(T) == 2) return (cap & 0xffffu) * 0x00010001u;
-  return cap;
-}
-
-// (+) on a word of packed T lanes; cap is replicated.  The saturating add
-// stops at the lane maximum >= cap, so the min with cap equals
-// min(acc + v, cap) lane by lane (the wrapper takes the scalar path when
-// cap exceeds the lane maximum).
-template <typename T, int OP>
-__device__ __forceinline__ uint32_t fold_packed(uint32_t a, uint32_t v,
-                                                uint32_t cap) {
-  if (OP == kOr) return a | v;
-  if (sizeof(T) == 1)
-    return OP == kMin ? __vminu4(a, v) : __vminu4(__vaddus4(a, v), cap);
-  if (sizeof(T) == 2)
-    return OP == kMin ? __vminu2(a, v) : __vminu2(__vaddus2(a, v), cap);
-  return fold<OP>(a, v, cap);
-}
-
-template <typename T, int OP, bool PACKED>
-__device__ __forceinline__ void fold_chunk(uint32_t* acc, const uint32_t* v,
-                                           uint32_t cap) {
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e)
-    acc[e] = PACKED ? fold_packed<T, OP>(acc[e], v[e], cap)
-                    : fold<OP>(acc[e], v[e], cap);
-}
-
-// The chunk of a row that starts at column c0 (n columns in the tile).
-template <typename T, int OP, bool PACKED>
-__device__ __forceinline__ void load_chunk(uint32_t* v, const T* row, int c0,
-                                           int n) {
-  if (PACKED) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + c0));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e)
-      v[e] = c0 + e < n ? (uint32_t)__ldg(row + c0 + e) : identity<T, OP>();
-  }
-}
-
-template <typename T, bool PACKED>
-__device__ __forceinline__ void store_chunk(T* row, int c0, int n,
-                                            const uint32_t* acc) {
-  if (PACKED) {
-    *reinterpret_cast<uint4*>(row + c0) =
-        make_uint4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e)
-      if (c0 + e < n) row[c0 + e] = static_cast<T>(acc[e]);
-  }
-}
 
 template <typename T, int OP>
 __global__ void __launch_bounds__(kColThreads) col_reduce_kernel(
@@ -221,8 +160,7 @@ __global__ void __launch_bounds__(kWarps * 32) block_sparse_lane_kernel(
   uint4* tile = s_tile[warp];           // [n_sub][kGroupRows][group]
   uint4* mine = tile + sub * kGroupRows * group + ch;
   const uint32_t capr = PACKED ? replicate<T>(cap) : cap;
-  const uint32_t ident =
-      PACKED ? (OP == kMin ? kFull : 0u) : identity<T, OP>();
+  const uint32_t ident = chunk_identity<T, OP, PACKED>();
   const unsigned below = (1u << lane) - 1u;
 
   // all four list offsets in flight at once

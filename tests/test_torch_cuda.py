@@ -14,6 +14,7 @@ import torch
 from repro_torch import (bitset, compressed, deltalog, dfs_baseline, engine,
                          graph as G, pattern, snapshot, tdr_build, tdr_query)
 from repro_torch.kernels import ops, ref
+from repro_torch.semiring import COUNT, COUNT_CAP, DIST8, DIST16
 
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
 
@@ -262,15 +263,37 @@ def _lane_x(rng, k, w, op, dt, cap):
     return x
 
 
+def _offset_by_one(t: torch.Tensor) -> torch.Tensor:
+    """The same values in a row slice of a larger tensor, one element
+    past its start: contiguous, but not 16-byte aligned."""
+    big = t.new_empty(t.numel() + 1)
+    big[1:] = t.flatten()
+    out = big[1:].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,w", [(1, 32, 1), (24, 64, 6), (70, 64, 33),
-                                   (100, 224, 130), (4096, 4096, 128)])
+@pytest.mark.parametrize("m,k,w,shift", [
+    (1, 32, 1, ""), (24, 64, 6, ""), (70, 64, 33, ""), (100, 224, 130, ""),
+    (4096, 4096, 128, ""), (100, 224, 256, ""), (70, 96, 384, ""),
+    (40, 4096, 130, ""), (70, 256, 128, "x"), (70, 256, 256, "x"),
+    (70, 256, 128, "ax"), (70, 256, 256, "ax"), (70, 256, 8, "ax")])
 @pytest.mark.parametrize("op,dt,cap", LANE_CASES)
-def test_lane_matmul_kernel_matches_plain(cuda, m, k, w, op, dt, cap):
+def test_lane_matmul_kernel_matches_plain(cuda, m, k, w, shift, op, dt,
+                                          cap):
+    """W = 256 and 384 take several 128-lane passes; (40, 4096, 130)
+    has rows of ~1,200 set bits, more than one warp's list holds.
+    ``shift`` puts X ("x"), or A and X ("ax"), one element past a 16-byte
+    boundary: the kernel takes its 4-lane and 4-byte loads there."""
     rng = np.random.default_rng(m + w)
     density = 0.001 if m >= 4096 else 0.3
     a_h, a_d = _both(bitset.pack_bits_np(rng.random((m, k)) < density), cuda)
     x_h, x_d = _lane_pair(_lane_x(rng, k, w, op, dt, cap), cuda)
+    if "x" in shift:
+        x_d = _offset_by_one(x_d)
+    if "a" in shift:
+        a_d = _offset_by_one(a_d)
     n0 = ops.KERNEL_LAUNCHES["lane_matmul"]
     got = ops.frontier_step_lanes(a_d, x_d, op=op, cap=cap)
     assert ops.KERNEL_LAUNCHES["lane_matmul"] == n0 + 1
@@ -484,6 +507,50 @@ def test_dist_on_card_matches_segment_and_oracle(cuda, kind):
             assert tdr_query.count_routes(idx, u, v, p, hops=5) == \
                 dfs_baseline.count_routes(g, u, v, p, hops=5,
                                           cap=(1 << 15) - 1)
+
+
+def _pairs_merged(g):
+    """``g`` with its parallel edges (same vertex pair, other labels)
+    merged into one: the packed adjacency holds one bit per pair."""
+    pair = g.src.astype(np.int64) * g.n_vertices + g.indices
+    _, first = np.unique(pair, return_index=True)
+    return G.Graph.from_edges(g.n_vertices, g.n_labels, zip(
+        g.src[first].tolist(), g.indices[first].tolist(),
+        g.labels[first].tolist()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_engine_lane_rounds_on_card_match_segment(cuda, reverse):
+    """The engine's lane rounds on ``matmul`` (B4 on the full adjacency)
+    equal ``segment``: ``propagate(sr=COUNT)`` at W = 128 and 300 (the
+    sum counts a vertex pair once, so ``segment`` runs on the graph with
+    parallel edges merged), ``closure(sr=DIST8 / DIST16)`` over 256
+    sources with equal rounds, one launch per round."""
+    g = _pairs_merged(G.erdos_renyi(3000, 4.0, 8, seed=5))
+    eng = engine.make_engine(g, backend="matmul", device=cuda)
+    eng_s = engine.make_engine(g, backend="segment", device=cuda)
+    rng = np.random.default_rng(6)
+    for w in (128, 300):
+        x = torch.from_numpy(rng.integers(
+            0, COUNT_CAP + 1, (3000, w)).astype(np.int32)).to(cuda)
+        n0 = ops.KERNEL_LAUNCHES["lane_matmul"]
+        got = eng.propagate(x, reverse=reverse, sr=COUNT)
+        assert ops.KERNEL_LAUNCHES["lane_matmul"] == n0 + 1
+        assert torch.equal(got, eng_s.propagate(x, reverse=reverse,
+                                                sr=COUNT))
+    src = rng.choice(3000, 256, replace=False)
+    for sr in (DIST8, DIST16):
+        base = np.full((3000, 256), sr.zero, dtype=sr.dtype_name)
+        base[src, np.arange(256)] = 0
+        base_t = torch.from_numpy(base.view(
+            np.int16 if sr.dtype_name == "uint16" else np.uint8)).to(cuda)
+        n0 = ops.KERNEL_LAUNCHES["lane_matmul"]
+        got, rounds = eng.closure(base_t, reverse=reverse, sr=sr)
+        assert ops.KERNEL_LAUNCHES["lane_matmul"] == n0 + rounds
+        want, want_rounds = eng_s.closure(base_t, reverse=reverse, sr=sr)
+        assert rounds == want_rounds > 2
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

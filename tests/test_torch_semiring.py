@@ -205,15 +205,28 @@ def test_lane_matmul_matches_ref(sr):
     np.testing.assert_array_equal(got, dense)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, so that parallel test workers do
+    not oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("width", [1, 256])
 @pytest.mark.parametrize("sr", [DIST16, COUNT], ids=lambda s: s.name)
-def test_closure_matmul_rows_extend(sr):
+def test_closure_matmul_rows_extend(sr, width):
     """_matmul_rows applies extend after the lane reduce: for DIST the
     result is 1 + min over the selected rows (saturating, so INF-1 gives
-    INF); for COUNT it is the capped sum unchanged."""
+    INF); for COUNT it is the capped sum unchanged.  ``width`` 256 holds
+    lanes past one 128-lane pass."""
     a = rbitset.pack_bits_np(np.array([[1, 1, 0, 0], [0, 0, 0, 0],
                                        [0, 0, 0, 1]], dtype=bool))
     top = sr.zero - 1 if sr.op == "min" else sr.cap
-    x = np.array([[3], [5], [9], [top]], dtype=sr.dtype_name)
+    x = np.repeat(np.array([[3], [5], [9], [top]], dtype=sr.dtype_name),
+                  width, axis=1)
     out = engine._matmul_rows(bitset.np_to_words(a, "cpu"), _lanes_t(x),
                               sr=sr)
     got = _lanes_np(out, sr)
@@ -221,20 +234,24 @@ def test_closure_matmul_rows_extend(sr):
                              sr=RS.by_name(sr.name))
     np.testing.assert_array_equal(got, np.asarray(want))
     if sr.op == "min":
-        assert got.tolist() == [[4], [sr.zero], [sr.zero]]
+        assert got.tolist() == [[4] * width, [sr.zero] * width,
+                                [sr.zero] * width]
     else:
-        assert got.tolist() == [[8], [0], [sr.cap]]
+        assert got.tolist() == [[8] * width, [0] * width, [sr.cap] * width]
 
 
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("n,sources", [(40, 40), (300, 256)])
 @pytest.mark.parametrize("backend", list(BACKENDS))
 @pytest.mark.parametrize("sr", [DIST16, DIST8], ids=lambda s: s.name)
-def test_lane_closure_matches_reference(backend, sr):
+def test_lane_closure_matches_reference(backend, sr, n, sources):
     """closure(sr=DIST*) converges to the reference's distance plane in
-    the reference's rounds, on both backends (all-pairs hop distances
-    from a diagonal of zeros)."""
-    rg = RG.random_graph("er", 40, 2.0, 3, seed=7)
-    g = G.random_graph("er", 40, 2.0, 3, seed=7)
-    base = np.full((40, 40), sr.zero, dtype=sr.dtype_name)
+    the reference's rounds, on both backends (hop distances from
+    ``sources`` vertices, a diagonal of zeros; 256 sources are lanes past
+    one 128-lane pass)."""
+    rg = RG.random_graph("er", n, 2.0, 3, seed=7)
+    g = G.random_graph("er", n, 2.0, 3, seed=7)
+    base = np.full((n, sources), sr.zero, dtype=sr.dtype_name)
     np.fill_diagonal(base, 0)
     eng = engine.make_engine(g, backend=backend, device="cpu")
     got, rounds = eng.closure(_lanes_t(base), sr=sr)
@@ -248,6 +265,37 @@ def test_lane_closure_matches_reference(backend, sr):
         _lanes_np(one, sr), np.asarray(reng.make_engine(
             rg, backend=BACKENDS[backend]).propagate(jnp.asarray(base),
                                                      sr=rsr)))
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_count_propagate_on_a_multigraph_matches_reference(backend):
+    """propagate(sr=COUNT) on a graph with parallel edges (one vertex
+    pair, several labels) equals the reference's on each backend.  The two
+    backends differ there, in the reference as in the port: the packed
+    adjacency of ``pallas`` / ``matmul`` holds one bit per vertex pair, so
+    a pair's edges count once, while ``segment`` counts every labelled
+    edge.  The rows that differ are exactly the sources of such pairs."""
+    n, w = 64, 8
+    rng = np.random.default_rng(11)
+    uv = rng.integers(0, n, size=(200, 2))
+    edges = [(int(u), int(v), int(rng.integers(0, 3))) for u, v in uv]
+    edges += [(u, v, (lab + 1) % 3) for u, v, lab in edges[:12]]
+    x = rng.integers(1, 100, size=(n, w)).astype(np.uint32)
+    rg = RG.Graph.from_edges(n, 3, edges)
+    g = G.Graph.from_edges(n, 3, edges)
+    got = engine.make_engine(g, backend=backend, device="cpu").propagate(
+        _lanes_t(x), sr=COUNT)
+    rsr = RS.by_name(COUNT.name)
+    want = {b: np.asarray(reng.make_engine(rg, backend=b).propagate(
+        jnp.asarray(x), sr=rsr)) for b in ("segment", "pallas")}
+    np.testing.assert_array_equal(_lanes_np(got, COUNT),
+                                  want[BACKENDS[backend]])
+    pair = g.src.astype(np.int64) * n + g.indices
+    _, counts = np.unique(pair, return_counts=True)
+    multi = np.unique(np.unique(pair)[counts > 1] // n)
+    apart = np.flatnonzero((want["segment"] != want["pallas"]).any(axis=1))
+    assert multi.size > 0
+    np.testing.assert_array_equal(apart, multi)
 
 
 def test_closure_refuses_count():
