@@ -23,7 +23,8 @@ backend that was asked for by name).  Both backends are bit-exact against
 each other and against the JAX package.
 Each fixpoint is a Python loop with one host sync per round (the JAX
 package runs one device ``while_loop``); converged planes and round counts
-are the same.
+are the same.  The sync is the span ``sync`` and operand packing the span
+``engine.pack`` (``utils/spans``).
 
 ``propagate`` and ``closure`` take a semiring (``sr=``, default
 ``BOOLEAN``): lane carriers (DIST16/DIST8/COUNT, ``repro_torch.semiring``)
@@ -52,6 +53,7 @@ from .compressed import BlockCompressed, compress_blocks, patch_blocks
 from .graph import Graph, csr_row_edges
 from .kernels import _build, ops
 from .semiring import BOOLEAN, Semiring
+from .utils import spans
 
 ENV_BACKEND = "REPRO_ENGINE_BACKEND"
 BACKENDS = ("segment", "matmul")
@@ -161,7 +163,8 @@ def _fixpoint(base: torch.Tensor, step, max_iters: int,
     r, rounds, changed = base, 0, True
     while changed and rounds < max_iters:
         r, ch = sr.accumulate(r, step(r))
-        changed = bool(ch)
+        with spans.span("sync"):
+            changed = bool(ch)
         rounds += 1
     return r, rounds
 
@@ -177,7 +180,8 @@ def _closure_blocksparse(base: torch.Tensor, comp: BlockCompressed,
         nxt = ops.frontier_step_sparse(comp, new) & ~r
         r = r | nxt
         new = nxt
-        changed = bool((nxt != 0).any())
+        with spans.span("sync"):
+            changed = bool((nxt != 0).any())
         rounds += 1
     return r, rounds
 
@@ -398,18 +402,31 @@ class Engine:
     def adjacency(self, *, reverse: bool = False) -> torch.Tensor:
         """Cached packed adjacency bit-matrix int32 ``[V, ceil(V/32)]``."""
         if reverse not in self._adj:
-            self._adj[reverse] = bitset.np_to_words(
-                pack_adjacency_np(self.graph, reverse=reverse), self.device)
+            with spans.span("engine.pack"):
+                self._adj[reverse] = bitset.np_to_words(
+                    pack_adjacency_np(self.graph, reverse=reverse),
+                    self.device)
         return self._adj[reverse]
 
     def block_adjacency(self, *, reverse: bool = False) -> BlockCompressed:
         """Cached block-compressed adjacency (the sparse-closure operand)."""
         if reverse not in self._bcomp:
-            self._bcomp[reverse] = compress_blocks(
-                pack_adjacency_np(self.graph, reverse=reverse),
-                br=self.config.block_rows, bw=self.config.block_words,
-                nbits=self.graph.n_vertices, device=self.device)
+            with spans.span("engine.pack"):
+                self._bcomp[reverse] = compress_blocks(
+                    pack_adjacency_np(self.graph, reverse=reverse),
+                    br=self.config.block_rows, bw=self.config.block_words,
+                    nbits=self.graph.n_vertices, device=self.device)
         return self._bcomp[reverse]
+
+    def pack_operands(self, *, reverse: bool = False) -> None:
+        """Pack now, and cache, the adjacency operands that ``propagate``
+        and a default boolean ``closure`` read in direction ``reverse``;
+        the segment backend reads the edge lists and packs none."""
+        if self.backend != "matmul":
+            return
+        self.adjacency(reverse=reverse)
+        if self._sparse(None):
+            self.block_adjacency(reverse=reverse)
 
     def label_class_adjacency(self, special_labels, *,
                               reverse: bool = True) -> torch.Tensor:
@@ -510,9 +527,7 @@ class Engine:
             return _fixpoint(
                 base, lambda r: self.propagate(r, reverse=reverse, sr=sr),
                 max_iters, sr)
-        if sparse is None:
-            sparse = self.config.sparse and (
-                self.backend == "segment" or self.device.type == "cuda")
+        sparse = self._sparse(sparse)
         if self.backend == "matmul":
             if sparse:
                 return _closure_blocksparse(
@@ -524,6 +539,13 @@ class Engine:
                                                   max_iters=max_iters)
         return _fixpoint(base, lambda r: self.propagate(r, reverse=reverse),
                          max_iters)
+
+    def _sparse(self, sparse: bool | None) -> bool:
+        """``closure``'s ``sparse`` with its default resolved."""
+        if sparse is None:
+            return self.config.sparse and (
+                self.backend == "segment" or self.device.type == "cuda")
+        return sparse
 
     # ------------------------------------------------------------- updates
     def apply_delta(self, graph: Graph, added: np.ndarray,
@@ -624,12 +646,14 @@ class Engine:
         # stage 1: high-occupancy rounds run dense
         while n_act > thresh and rounds < max_iters:
             new = self.propagate(r, reverse=reverse) & ~r
-            n_act = int((new != 0).any(dim=-1).sum())
+            with spans.span("sync"):
+                n_act = int((new != 0).any(dim=-1).sum())
             r = r | new
             rounds += 1
         # stage 2: small-frontier tail over the frontier's edges only
         while rounds < max_iters:
-            act = np.flatnonzero((new != 0).any(dim=-1).cpu().numpy())
+            with spans.span("sync"):
+                act = np.flatnonzero((new != 0).any(dim=-1).cpu().numpy())
             if act.size == 0:
                 break
             rounds += 1

@@ -109,6 +109,7 @@ from .. import pattern as pat
 from .. import rpq as rpq_mod
 from .. import snapshot as snapshot_mod
 from .. import tdr_build, tdr_query
+from ..utils import spans
 
 LOG_NAME = "deltas.wal"
 _SNAP_RE = re.compile(r"snapshot-(\d+)\.tdr")
@@ -190,6 +191,12 @@ class ServeStats:
     update_retries: int = 0
     snapshots: int = 0
     checkpoint_failures: int = 0
+    # requests the scheduler took off the queue, and the seconds they
+    # waited there (submit to popped), summed; the seconds of the batches
+    # that ``batches`` counts (the span ``serve.batch``)
+    dequeued: int = 0
+    queue_wait_s: float = 0.0
+    batch_s: float = 0.0
     query_stats: "tdr_query.QueryStats" = dataclasses.field(
         default_factory=tdr_query.QueryStats)
 
@@ -1083,9 +1090,10 @@ class QueryServer:
         tradeoff between latency (short wait) and amortization (full
         buckets).  An ``_UpdateBarrier`` at the queue head is returned
         alone (once everything ahead of it has been batched), so no
-        batch ever straddles an index swap."""
+        batch ever straddles an index swap.  The wait is the span
+        ``serve.next_batch``."""
         cfg = self.config
-        with self._lock:
+        with spans.span("serve.next_batch"), self._lock:
             while not self._queue:
                 if not self._running:
                     return None
@@ -1110,6 +1118,9 @@ class QueryServer:
                         return batch
                     self._queue.popleft()
                     batch.append(nxt)
+                    self.stats.dequeued += 1
+                    self.stats.queue_wait_s += \
+                        time.perf_counter() - nxt.t_submit
                     jobs += nxt.terms
                     if jobs >= cfg.max_jobs:
                         self._not_full.notify_all()
@@ -1121,8 +1132,19 @@ class QueryServer:
                 self._not_empty.wait(rem)
 
     def _serve_batch(self, batch: list[_Request]) -> None:
-        """Answer one coalesced batch: dedup → plan-cache compile →
-        per-kind executors → fan results out to futures + result cache."""
+        """Answer one coalesced batch (``_serve_requests``) under the span
+        ``serve.batch``; a batch that ``stats.batches`` counts adds its
+        seconds to ``stats.batch_s``."""
+        with spans.span("serve.batch") as sp:
+            counted = self._serve_requests(batch)
+        if counted:
+            with self._lock:
+                self.stats.batch_s += sp.seconds
+
+    def _serve_requests(self, batch: list[_Request]) -> bool:
+        """Dedup → plan-cache compile → per-kind executors → fan results
+        out to futures + result cache.  True when the batch ran the
+        executors and counts in ``stats.batches``."""
         cfg = self.config
         uniq: dict = {}   # rkey -> (u, v, pattern, kind, hops, k)
         fanout: dict = collections.defaultdict(list)
@@ -1151,7 +1173,7 @@ class QueryServer:
         for req, hit in cached:
             _resolve(req.future, (hit, lsn) if req.with_lsn else hit)
         if not uniq:
-            return
+            return False
         keys = list(uniq)
         try:
             answers = self._answer_keys(keys, uniq)
@@ -1159,7 +1181,7 @@ class QueryServer:
             for k in keys:
                 for req in fanout[k]:
                     _resolve(req.future, exc=exc)
-            return
+            return False
         with self._lock:
             self.stats.batches += 1
             self.stats.served += sum(len(v) for v in fanout.values())
@@ -1178,6 +1200,7 @@ class QueryServer:
                 _resolve(req.future,
                          (answers[k], lsn) if req.with_lsn
                          else answers[k])
+        return True
 
     def _answer_keys(self, keys: list, uniq: dict) -> dict:
         """Run every kind's executor over its slice of the unique keys, on
@@ -1187,14 +1210,17 @@ class QueryServer:
         batch through ``rpq_batch`` (lowered ones ride the same
         ``answer_plan`` shapes as bool traffic, product-route ones the
         fixed ``exact_chunk`` NFA shapes); witness/count run per query
-        at fixed single-query shapes."""
+        at fixed single-query shapes.  Each kind's executor is a span
+        (``serve.bool``, ``serve.dist``, ``serve.rpq``, ``serve.witness``,
+        ``serve.count``)."""
         cfg = self.config
         qstats = self.stats.query_stats
         out: dict = {}
         bool_keys = [kk for kk in keys if uniq[kk][3] == "bool"]
         if bool_keys:
-            ans = self._answer([uniq[kk][:3] for kk in bool_keys],
-                               stats=qstats)
+            with spans.span("serve.bool"):
+                ans = self._answer([uniq[kk][:3] for kk in bool_keys],
+                                   stats=qstats)
             out.update(zip(bool_keys, (bool(a) for a in ans)))
         dist_groups: dict = collections.defaultdict(list)
         for kk in keys:
@@ -1204,26 +1230,31 @@ class QueryServer:
                       exact_mode=self._kind_mode(), pin_m=self._pin_m,
                       stats=qstats, device=self.index.device)
         for kb, group in dist_groups.items():
-            ds = tdr_query.dist_batch(
-                self.index, [uniq[kk][:3] for kk in group], k=kb,
-                exact_chunk=cfg.exact_chunk,
-                special_labels=self._special, **common)
+            with spans.span("serve.dist"):
+                ds = tdr_query.dist_batch(
+                    self.index, [uniq[kk][:3] for kk in group], k=kb,
+                    exact_chunk=cfg.exact_chunk,
+                    special_labels=self._special, **common)
             out.update(zip(group, (int(d) for d in ds)))
         rpq_keys = [kk for kk in keys if uniq[kk][3] == "rpq"]
         if rpq_keys:
-            ans = tdr_query.rpq_batch(
-                self.index, [uniq[kk][:3] for kk in rpq_keys],
-                exact_chunk=cfg.exact_chunk,
-                special_labels=self._special,
-                pad_lo=cfg.min_bucket, q_unroll=32, **common)
+            with spans.span("serve.rpq"):
+                ans = tdr_query.rpq_batch(
+                    self.index, [uniq[kk][:3] for kk in rpq_keys],
+                    exact_chunk=cfg.exact_chunk,
+                    special_labels=self._special,
+                    pad_lo=cfg.min_bucket, q_unroll=32, **common)
             out.update(zip(rpq_keys, (bool(a) for a in ans)))
         for kk in keys:
             u, v, p, kd, hops, _ = uniq[kk]
             if kd == "witness":
-                out[kk] = tdr_query.witness(self.index, u, v, p, **common)
+                with spans.span("serve.witness"):
+                    out[kk] = tdr_query.witness(self.index, u, v, p,
+                                                **common)
             elif kd == "count":
-                out[kk] = tdr_query.count_routes(self.index, u, v, p,
-                                                 hops=hops, **common)
+                with spans.span("serve.count"):
+                    out[kk] = tdr_query.count_routes(self.index, u, v, p,
+                                                     hops=hops, **common)
         return out
 
     def _kind_mode(self, kind: str = "other") -> str:

@@ -21,6 +21,8 @@ Index anatomy (per vertex ``u``, ``G`` ways, ``k`` vertical levels):
 
 The host precompute (DFS intervals, hash layout, label slots, way routing)
 is numpy, kept in step with the JAX package so both build the same planes.
+Each piece of a build is a span of ``utils/spans`` (``repro_torch.build.*``)
+and its seconds land in the index's ``build_stats`` (``BuildStats``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from . import bitset
 from . import compressed as compressed_mod
 from . import engine as engine_mod
 from .graph import Graph, GraphDelta, csr_row_edges
+from .utils import spans
 
 
 # ---------------------------------------------------------------- config
@@ -98,6 +101,9 @@ class TDRIndex:
     # canonical pattern -> compiled plan rows (tdr_query.pattern_rows LRU)
     _plan_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     _sat_dev: tuple | None = dataclasses.field(default=None, repr=False)
+    # where the build_index call that made this index spent its time
+    build_stats: "BuildStats | None" = dataclasses.field(default=None,
+                                                         repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -379,40 +385,54 @@ def build_index(graph: Graph, cfg: TDRConfig = TDRConfig(), *,
         return distributed.build_index(graph, cfg, mesh=mesh)
     dev = engine_mod.resolve_device(device)
     v_n = graph.n_vertices
-    push, pop, disc = dfs_intervals(graph)
-    if layout is not None:
-        disc = np.asarray(layout, dtype=np.int32)
-        if disc.shape != (v_n,):
-            raise ValueError(
-                f"layout must be an int [{v_n}] discovery-order array")
-    vtx_words_np = _vertex_bit_words(cfg, disc)
-    lab_slot = _label_slots(cfg, graph.n_labels)
-    g_count, way = way_assignment(cfg, graph, disc)
+    st = BuildStats()
+    with spans.span("build", st, "wall_s"):
+        with spans.span("build.dfs_intervals", st, "dfs_s"):
+            push, pop, disc = dfs_intervals(graph)
+        with spans.span("build.layout", st, "layout_s"):
+            if layout is not None:
+                disc = np.asarray(layout, dtype=np.int32)
+                if disc.shape != (v_n,):
+                    raise ValueError(
+                        f"layout must be an int [{v_n}] discovery-order "
+                        "array")
+            vtx_words_np = _vertex_bit_words(cfg, disc)
+            lab_slot = _label_slots(cfg, graph.n_labels)
+            g_count, way = way_assignment(cfg, graph, disc)
+            vtx_w = bitset.np_to_words(vtx_words_np, dev)        # [V, Wv]
+            lab_w = bitset.np_to_words(
+                _edge_label_words(cfg, lab_slot, graph.labels),
+                dev)                                              # [E, Wl]
 
-    if engine_config is None:
-        engine_config = engine_mod.EngineConfig(bit_chunk=cfg.bit_chunk)
-    eng = engine_mod.make_engine(graph, backend=backend,
-                                 config=engine_config, device=dev)
+        if engine_config is None:
+            engine_config = engine_mod.EngineConfig(bit_chunk=cfg.bit_chunk)
+        eng = engine_mod.make_engine(graph, backend=backend,
+                                     config=engine_config, device=dev)
+        max_iters = cfg.max_fixpoint_iters or v_n
 
-    vtx_w = bitset.np_to_words(vtx_words_np, dev)                # [V, Wv]
-    lab_w = bitset.np_to_words(
-        _edge_label_words(cfg, lab_slot, graph.labels), dev)      # [E, Wl]
-    max_iters = cfg.max_fixpoint_iters or v_n
+        # ---- the three closure fixpoints (forward vtx/lab, reverse), each
+        # direction's operands packed just before its first closure ----
+        with spans.span("build.pack", st, "pack_s"):
+            eng.pack_operands()
+        with spans.span("build.closure", st, "closure_s"):
+            base_v = eng.propagate(vtx_w)     # R[u] = OR (bit(v) | R[v])
+            r_vtx, rounds = eng.closure(base_v, max_iters=max_iters)
+        with spans.span("build.closure", st, "closure_s"):
+            base_l = eng.segment_or(lab_w, eng.edge_src, v_n)
+            r_lab, _ = eng.closure(base_l, max_iters=max_iters)
+        with spans.span("build.pack", st, "pack_s"):
+            eng.pack_operands(reverse=True)
+        with spans.span("build.closure", st, "closure_s"):
+            base_r = eng.propagate(vtx_w, reverse=True)
+            r_in, _ = eng.closure(base_r, reverse=True, max_iters=max_iters)
 
-    # ---- the three closure fixpoints (forward vtx/lab, reverse) --------
-    base_v = eng.propagate(vtx_w)         # R[u] = OR (bit(v) | R[v])
-    r_vtx, rounds = eng.closure(base_v, max_iters=max_iters)
-    base_l = eng.segment_or(lab_w, eng.edge_src, v_n)
-    r_lab, _ = eng.closure(base_l, max_iters=max_iters)
-    base_r = eng.propagate(vtx_w, reverse=True)
-    r_in, _ = eng.closure(base_r, reverse=True, max_iters=max_iters)
-
-    idx = _assemble_planes(graph, cfg, eng, vtx_w=vtx_w, lab_w=lab_w,
-                           base_v=base_v, base_l=base_l, base_r=base_r,
-                           r_vtx=r_vtx, r_lab=r_lab, r_in=r_in,
-                           g_count=g_count, way=way, push=push, pop=pop,
-                           disc=disc, vtx_words_np=vtx_words_np,
-                           lab_slot=lab_slot, rounds=int(rounds))
+        idx = _assemble_planes(
+            graph, cfg, eng, vtx_w=vtx_w, lab_w=lab_w, base_v=base_v,
+            base_l=base_l, base_r=base_r, r_vtx=r_vtx, r_lab=r_lab,
+            r_in=r_in, g_count=g_count, way=way, push=push, pop=pop,
+            disc=disc, vtx_words_np=vtx_words_np, lab_slot=lab_slot,
+            rounds=int(rounds), stats=st)
+    idx.build_stats = st
     idx._engines[eng.backend] = eng
     idx._vtx_packed = vtx_w
     return idx
@@ -421,58 +441,62 @@ def build_index(graph: Graph, cfg: TDRConfig = TDRConfig(), *,
 def _assemble_planes(graph: Graph, cfg: TDRConfig, eng, *, vtx_w, lab_w,
                      base_v, base_l, base_r, r_vtx, r_lab, r_in, g_count,
                      way, push, pop, disc, vtx_words_np, lab_slot,
-                     rounds: int) -> TDRIndex:
+                     rounds: int,
+                     stats: "BuildStats | None" = None) -> TDRIndex:
     """Tail of Alg. 1: vertical k-level propagation + per-way projections
-    + index wrap-up, given converged closures."""
+    + index wrap-up, given converged closures; with ``stats``, the two
+    pieces' seconds land there."""
     v_n = graph.n_vertices
     dev = eng.device
     src, dst = eng.edge_src, eng.edge_dst
-    null_w = bitset.np_to_words(_null_words(cfg), dev)           # [Wl]
-    is_leaf = torch.from_numpy(graph.out_degree() == 0).to(dev)
+    with spans.span("build.levels", stats, "levels_s"):
+        null_w = bitset.np_to_words(_null_words(cfg), dev)           # [Wl]
+        is_leaf = torch.from_numpy(graph.out_degree() == 0).to(dev)
 
-    # ---- vertical levels (exact k-round propagation) --------------------
-    cur_lab = torch.where(is_leaf[:, None], null_w[None, :], base_l)
-    cur_vtx = base_v
-    d_lab_levels = [cur_lab]   # D_lab[:, l] — labels at hop l+1
-    d_vtx_levels = [cur_vtx]   # D_vtx[:, l] — vertices at hop l+1
-    for _ in range(1, cfg.k):
-        nxt_lab = eng.propagate(cur_lab)
-        nxt_lab = torch.where(is_leaf[:, None], null_w[None, :], nxt_lab)
-        nxt_vtx = eng.propagate(cur_vtx)
-        nxt_vtx = torch.where(is_leaf[:, None], 0, nxt_vtx)
-        d_lab_levels.append(nxt_lab)
-        d_vtx_levels.append(nxt_vtx)
-        cur_lab, cur_vtx = nxt_lab, nxt_vtx
-    d_lab = torch.stack(d_lab_levels, dim=1)   # [V, k, Wl]
-    d_vtx = torch.stack(d_vtx_levels, dim=1)   # [V, k, Wv]
+        # ---- vertical levels (exact k-round propagation) --------------------
+        cur_lab = torch.where(is_leaf[:, None], null_w[None, :], base_l)
+        cur_vtx = base_v
+        d_lab_levels = [cur_lab]   # D_lab[:, l] — labels at hop l+1
+        d_vtx_levels = [cur_vtx]   # D_vtx[:, l] — vertices at hop l+1
+        for _ in range(1, cfg.k):
+            nxt_lab = eng.propagate(cur_lab)
+            nxt_lab = torch.where(is_leaf[:, None], null_w[None, :], nxt_lab)
+            nxt_vtx = eng.propagate(cur_vtx)
+            nxt_vtx = torch.where(is_leaf[:, None], 0, nxt_vtx)
+            d_lab_levels.append(nxt_lab)
+            d_vtx_levels.append(nxt_vtx)
+            cur_lab, cur_vtx = nxt_lab, nxt_vtx
+        d_lab = torch.stack(d_lab_levels, dim=1)   # [V, k, Wl]
+        d_vtx = torch.stack(d_vtx_levels, dim=1)   # [V, k, Wv]
 
     # ---- per-way projections --------------------------------------------
-    gmax = cfg.g_max
-    seg = src * gmax + torch.from_numpy(way.astype(np.int64)).to(dev)
-    n_seg = v_n * gmax
+    with spans.span("build.projections", stats, "projections_s"):
+        gmax = cfg.g_max
+        seg = src * gmax + torch.from_numpy(way.astype(np.int64)).to(dev)
+        n_seg = v_n * gmax
 
-    h_vtx = eng.segment_or(vtx_w[dst] | r_vtx[dst], seg, n_seg)
-    h_lab = eng.segment_or(lab_w | r_lab[dst], seg, n_seg)
-    v_lab_lv = [eng.segment_or(lab_w, seg, n_seg)]
-    v_vtx_lv = [eng.segment_or(vtx_w[dst], seg, n_seg)]
-    for l in range(1, cfg.k):
-        v_lab_lv.append(eng.segment_or(d_lab[dst, l - 1], seg, n_seg))
-        v_vtx_lv.append(eng.segment_or(d_vtx[dst, l - 1], seg, n_seg))
+        h_vtx = eng.segment_or(vtx_w[dst] | r_vtx[dst], seg, n_seg)
+        h_lab = eng.segment_or(lab_w | r_lab[dst], seg, n_seg)
+        v_lab_lv = [eng.segment_or(lab_w, seg, n_seg)]
+        v_vtx_lv = [eng.segment_or(vtx_w[dst], seg, n_seg)]
+        for l in range(1, cfg.k):
+            v_lab_lv.append(eng.segment_or(d_lab[dst, l - 1], seg, n_seg))
+            v_vtx_lv.append(eng.segment_or(d_vtx[dst, l - 1], seg, n_seg))
 
-    wv = vtx_w.shape[-1]
-    wl = lab_w.shape[-1]
-    h_vtx = h_vtx.reshape(v_n, gmax, wv)
-    h_lab = h_lab.reshape(v_n, gmax, wl)
-    v_lab_p = torch.stack(v_lab_lv, dim=1).reshape(v_n, gmax, cfg.k, wl)
-    v_vtx_p = torch.stack(v_vtx_lv, dim=1).reshape(v_n, gmax, cfg.k, wv)
+        wv = vtx_w.shape[-1]
+        wl = lab_w.shape[-1]
+        h_vtx = h_vtx.reshape(v_n, gmax, wv)
+        h_lab = h_lab.reshape(v_n, gmax, wl)
+        v_lab_p = torch.stack(v_lab_lv, dim=1).reshape(v_n, gmax, cfg.k, wl)
+        v_vtx_p = torch.stack(v_vtx_lv, dim=1).reshape(v_n, gmax, cfg.k, wv)
 
-    # the vertex hashes itself into each *used* way (paper Alg. 1 line 10)
-    g_count_t = torch.from_numpy(g_count).to(dev)
-    way_used = torch.arange(gmax, device=dev)[None, :] < g_count_t[:, None]
-    h_vtx = h_vtx | torch.where(way_used[:, :, None], vtx_w[:, None, :], 0)
+        # the vertex hashes itself into each *used* way (paper Alg. 1 line 10)
+        g_count_t = torch.from_numpy(g_count).to(dev)
+        way_used = torch.arange(gmax, device=dev)[None, :] < g_count_t[:, None]
+        h_vtx = h_vtx | torch.where(way_used[:, :, None], vtx_w[:, None, :], 0)
 
-    n_out = bitset.or_reduce(h_vtx, axis=1) if gmax > 0 else r_vtx
-    n_out = n_out | vtx_w  # self is "reachable" for membership filtering
+        n_out = bitset.or_reduce(h_vtx, axis=1) if gmax > 0 else r_vtx
+        n_out = n_out | vtx_w  # self is "reachable" for membership filtering
 
     return TDRIndex(
         cfg=cfg, graph=graph,
@@ -510,6 +534,25 @@ def _carry_compressed(old_comp: dict, idx2: TDRIndex,
         out[name] = c.patch_rows(sub, bitset.words_to_np(
             flat[torch.from_numpy(sub).to(flat.device)]))
     return out
+
+
+@dataclasses.dataclass
+class BuildStats:
+    """Where one ``build_index`` call spent its host time, in seconds:
+    the DFS forest (``dfs_s``), the hash layout, label slots, way routing
+    and their device copies (``layout_s``), the engine's packing of the
+    adjacency operands the build reads (``pack_s``), the three closures
+    (``closure_s``), the k-level propagation (``levels_s``) and the
+    per-way projections (``projections_s``); ``wall_s`` is the whole call.
+    The pieces do not overlap.  Device work a piece queues and does not
+    wait for shows in a later piece, or after the call."""
+    dfs_s: float = 0.0
+    layout_s: float = 0.0
+    pack_s: float = 0.0
+    closure_s: float = 0.0
+    levels_s: float = 0.0
+    projections_s: float = 0.0
+    wall_s: float = 0.0
 
 
 # ------------------------------------------------------ incremental update

@@ -34,7 +34,9 @@ from ``u`` over the full graph until every target state is reached (on
 The expansion is exact (the corridor is a superset of every u→v path), so
 answers equal the DFS oracle bit for bit.  Every loop is a Python loop
 with one host sync per round; plan shapes, round counts and ``QueryStats``
-equal the JAX package's.
+equal the JAX package's.  Each phase, the plan compile, the class-stack
+preparation, the edge reductions and every loop's host sync is a span of
+``utils/spans`` (``repro_torch.query.*``, ``repro_torch.sync``).
 
 The other query kinds (``QUERY_KINDS``) run lane DPs over the same
 corridor-compacted subgraphs, at the bottom of this module: ``dist_batch``
@@ -51,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 import weakref
 from typing import NamedTuple, Sequence
 
@@ -67,6 +68,7 @@ from . import dfs_baseline as dfs_mod
 from .kernels import ops
 from .semiring import COUNT_CAP, DIST16, narrow, widen
 from .tdr_build import TDRIndex, _null_words
+from .utils import spans
 
 FALSE, TRUE, UNKNOWN = 0, 1, 2
 
@@ -156,6 +158,10 @@ class QueryStats:
     saturated_chunks: int = 0  # chunks whose probe the summaries answered
     phase1_s: float = 0.0      # planner + filter cascade wall time
     phase2_s: float = 0.0      # exact expansion wall time
+    # phase-2 round loops' host reads of their flags, and the seconds the
+    # host waited in them (the device's queued rounds finishing)
+    host_syncs: int = 0
+    sync_wait_s: float = 0.0
     _round_parts: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
@@ -266,48 +272,49 @@ def compile_queries(index: TDRIndex,
     """Compile (u, v, pattern[, kind]) tuples into a ``QueryPlan``.  The
     optional fourth element is one of ``QUERY_KINDS`` (default "bool"); it
     does not change the plan rows, only which executor serves the query."""
-    cfg = index.cfg
-    wl = bitset.n_words(cfg.lab_bits)
-    wraw = bitset.n_words(max(index.graph.n_labels, 1))
-    kinds = []
-    for q in queries:
-        kind = q[3] if len(q) > 3 else "bool"
-        if kind not in QUERY_KINDS:
-            raise ValueError(
-                f"unknown query kind {kind!r}; expected one of "
-                f"{QUERY_KINDS}")
-        if kind == "rpq":
-            raise ValueError(
-                "kind='rpq' queries carry a regex AST, not a pattern; "
-                "route them through answer_mixed")
-        kinds.append(kind)
-    queries = [(q[0], q[1], q[2]) for q in queries]
-    rows_per_q = [pattern_rows(index, p, max_m, stats=stats)
-                  for (_, _, p) in queries]
-    counts = np.asarray([r.n_terms for r in rows_per_q], dtype=np.int64)
+    with spans.span("query.compile"):
+        cfg = index.cfg
+        wl = bitset.n_words(cfg.lab_bits)
+        wraw = bitset.n_words(max(index.graph.n_labels, 1))
+        kinds = []
+        for q in queries:
+            kind = q[3] if len(q) > 3 else "bool"
+            if kind not in QUERY_KINDS:
+                raise ValueError(
+                    f"unknown query kind {kind!r}; expected one of "
+                    f"{QUERY_KINDS}")
+            if kind == "rpq":
+                raise ValueError(
+                    "kind='rpq' queries carry a regex AST, not a pattern; "
+                    "route them through answer_mixed")
+            kinds.append(kind)
+        queries = [(q[0], q[1], q[2]) for q in queries]
+        rows_per_q = [pattern_rows(index, p, max_m, stats=stats)
+                      for (_, _, p) in queries]
+        counts = np.asarray([r.n_terms for r in rows_per_q], dtype=np.int64)
 
-    def cat(name, empty_cols):
-        parts = [getattr(r, name) for r in rows_per_q if r.n_terms]
-        if not parts:
-            dt = np.int32 if name in ("req_labels", "full_mask") else \
-                np.uint32
-            shape = (0,) if name == "full_mask" else (0, empty_cols)
-            return np.zeros(shape, dtype=dt)
-        return np.concatenate(parts)
+        def cat(name, empty_cols):
+            parts = [getattr(r, name) for r in rows_per_q if r.n_terms]
+            if not parts:
+                dt = np.int32 if name in ("req_labels", "full_mask") else \
+                    np.uint32
+                shape = (0,) if name == "full_mask" else (0, empty_cols)
+                return np.zeros(shape, dtype=dt)
+            return np.concatenate(parts)
 
-    uv = np.asarray([(u, v) for (u, v, _) in queries],
-                    dtype=np.int32).reshape(len(queries), 2)
-    qid = np.repeat(np.arange(len(queries), dtype=np.int32), counts)
-    return QueryPlan(
-        qid=qid,
-        u=np.repeat(uv[:, 0], counts),
-        v=np.repeat(uv[:, 1], counts),
-        req_w=cat("req_w", wl), forb_w=cat("forb_w", wl),
-        forb_raw_w=cat("forb_raw_w", wraw),
-        req_labels=cat("req_labels", max_m),
-        full_mask=cat("full_mask", 0),
-        n_queries=len(queries), max_m=max_m,
-        kinds=tuple(kinds) if any(k != "bool" for k in kinds) else ())
+        uv = np.asarray([(u, v) for (u, v, _) in queries],
+                        dtype=np.int32).reshape(len(queries), 2)
+        qid = np.repeat(np.arange(len(queries), dtype=np.int32), counts)
+        return QueryPlan(
+            qid=qid,
+            u=np.repeat(uv[:, 0], counts),
+            v=np.repeat(uv[:, 1], counts),
+            req_w=cat("req_w", wl), forb_w=cat("forb_w", wl),
+            forb_raw_w=cat("forb_raw_w", wraw),
+            req_labels=cat("req_labels", max_m),
+            full_mask=cat("full_mask", 0),
+            n_queries=len(queries), max_m=max_m,
+            kinds=tuple(kinds) if any(k != "bool" for k in kinds) else ())
 
 
 # ---------------------------------------------------------------- phase 1
@@ -459,10 +466,12 @@ def _bidi_loop(f0, b0, push_f, push_b, cor_w, meet, max_rounds: int):
     one backward expansion; a query's columns freeze once it meets
     (``meet(f, b)`` -> bool [Q]), and a direction whose last push added
     nothing is at its fixpoint and skips its push.  One host sync per
-    iteration reads the three loop flags."""
+    iteration reads the three loop flags; returns ``(done, rounds,
+    syncs)``."""
+    syncs = spans.Syncs()
     f, b = f0, b0
     done = meet(f, b)
-    cf, cb, all_done = True, True, bool(done.all())
+    cf, cb, all_done = True, True, syncs.read(done.all())
     rounds = 0
     while (cf or cb) and not all_done and rounds < max_rounds:
         mask = cor_w & bitset.full_words_where(~done)[None, :]
@@ -471,10 +480,10 @@ def _bidi_loop(f0, b0, push_f, push_b, cor_w, meet, max_rounds: int):
         new_b = push_b(b) & mask & ~b if cb else torch.zeros_like(b)
         b = b | new_b
         done = done | meet(f, b)
-        cf, cb, all_done = torch.stack(
-            [(new_f != 0).any(), (new_b != 0).any(), done.all()]).tolist()
+        cf, cb, all_done = syncs.read(torch.stack(
+            [(new_f != 0).any(), (new_b != 0).any(), done.all()]))
         rounds += 1
-    return done, rounds
+    return done, rounds, syncs
 
 
 def _seed(idx, v_p: int, q_n: int, val=1):
@@ -492,14 +501,17 @@ def _reduce_edges(val, scatter_idx, ids, v_p: int, chunk_words: int):
     row; one level, or two on a virtual-row split of heavy tails), or,
     when ``ids`` is None, by packed segment-ORs."""
     if ids is None:
-        return bitset.segment_or_words(val, scatter_idx, num_segments=v_p,
-                                       chunk_words=chunk_words)
-    val = torch.cat([val, val.new_zeros((1, val.shape[1]))])
-    for level in ids:
-        out = val[level[:, 0]]
-        for j in range(1, level.shape[1]):
-            out = out | val[level[:, j]]
-        val = out
+        with spans.span("query.reduce_segment"):
+            return bitset.segment_or_words(val, scatter_idx,
+                                           num_segments=v_p,
+                                           chunk_words=chunk_words)
+    with spans.span("query.reduce_gather"):
+        val = torch.cat([val, val.new_zeros((1, val.shape[1]))])
+        for level in ids:
+            out = val[level[:, 0]]
+            for j in range(1, level.shape[1]):
+                out = out | val[level[:, j]]
+            val = out
     return val                                                   # [V', Q]
 
 
@@ -560,7 +572,9 @@ def _expand_loop(f0, upd_of, v, full_mask, max_rounds: int):
     """One-directional fixpoint over a full-graph frontier ``[V, Q]``: run
     until every query's target state bit is set, nothing changes, or
     ``max_rounds``.  Finished queries' columns freeze, and ``changed``
-    comes from the round's own new bits; one host sync per round."""
+    comes from the round's own new bits; one host sync per round.  Returns
+    ``(done, rounds, syncs)``."""
+    syncs = spans.Syncs()
     iota = torch.arange(v.shape[0], device=v.device)
 
     def done_of(f):
@@ -568,15 +582,15 @@ def _expand_loop(f0, upd_of, v, full_mask, max_rounds: int):
 
     f = f0
     done = done_of(f)
-    changed, all_done, rounds = True, bool(done.all()), 0
+    changed, all_done, rounds = True, syncs.read(done.all()), 0
     while changed and not all_done and rounds < max_rounds:
         new = upd_of(f) & ~f & bitset.full_words_where(~done)[None, :]
         f = f | new
         done = done | done_of(f)
-        changed, all_done = torch.stack(
-            [(new != 0).any(), done.all()]).tolist()
+        changed, all_done = syncs.read(torch.stack(
+            [(new != 0).any(), done.all()]))
         rounds += 1
-    return done, rounds
+    return done, rounds, syncs
 
 
 def _legacy_segment(u, v, req_labels, forb_raw_w, full_mask, cor_w, elab,
@@ -640,6 +654,7 @@ class ChunkResult:
     n_active: int = 0       # |V'| this chunk ran on
     v_total: int = 0        # |V| of the full graph
     compacted: bool = False  # ran on an induced subgraph
+    syncs: spans.Syncs = dataclasses.field(default_factory=spans.Syncs)
 
 
 def _to_long(a: np.ndarray, device) -> torch.Tensor:
@@ -657,18 +672,19 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
     cap on the CPU (the caller runs its segment core); on a card
     ``Engine.dense_fits`` raises instead."""
     n_mats = 2 * (len(special) + 1)
-    if not eng.dense_fits(
-            n_mats * v_p * bitset.n_words(v_p) * 4,
-            f"this chunk's {n_mats} label-class adjacency matrices"):
-        return None
-    if edges is None:
-        adj = [eng.label_class_adjacency(special, reverse=rev)
-               for rev in (True, False)]
-    else:
-        adj = [bitset.np_to_words(engine_mod.pack_label_class_edges_np(
-            *edges, v_p, special, reverse=rev), eng.device)
-            for rev in (True, False)]
-    return (*adj, _to_long(np.asarray(special + (-1,)), eng.device))
+    with spans.span("query.class_stacks"):
+        if not eng.dense_fits(
+                n_mats * v_p * bitset.n_words(v_p) * 4,
+                f"this chunk's {n_mats} label-class adjacency matrices"):
+            return None
+        if edges is None:
+            adj = [eng.label_class_adjacency(special, reverse=rev)
+                   for rev in (True, False)]
+        else:
+            adj = [bitset.np_to_words(engine_mod.pack_label_class_edges_np(
+                *edges, v_p, special, reverse=rev), eng.device)
+                for rev in (True, False)]
+        return (*adj, _to_long(np.asarray(special + (-1,)), eng.device))
 
 
 class ExactExecutor:
@@ -775,9 +791,10 @@ class ExactExecutor:
         full-graph bidirectional expansion (corridor built on the device);
         else corridor compaction over the member rows."""
         if mode == "legacy":
-            reached, rounds = self._run_legacy(plan, jobs, special)
+            reached, rounds, syncs = self._run_legacy(plan, jobs, special)
             v_n = self.index.graph.n_vertices
-            return ChunkResult(jobs, len(jobs), reached, rounds, v_n, v_n)
+            return ChunkResult(jobs, len(jobs), reached, rounds, v_n, v_n,
+                               syncs=syncs)
         idx, eng = self.index, self.engine
         dev = idx.device
         g = idx.graph
@@ -826,11 +843,11 @@ class ExactExecutor:
             stacks = _class_stacks(eng, special, v_p,
                                    (s, d, l) if compacted else None)
         if stacks is not None:
-            reached, rounds = _bidi_matmul_core(
+            reached, rounds, syncs = _bidi_matmul_core(
                 su, sv, *stacks, req_labels, forb_raw_w, full_mask, cor_w,
                 n_states, m_eff, max_rounds)
             return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
-                               compacted)
+                               compacted, syncs)
 
         if compacted:
             e_real = s.shape[0]
@@ -844,12 +861,12 @@ class ExactExecutor:
         if sum(a.numel() for a in in_t + out_t) * q_n * 4 > \
                 self.GATHER_BYTES_CAP:
             in_t = out_t = None
-        reached, rounds = _bidi_segment_core(
+        reached, rounds, syncs = _bidi_segment_core(
             su, sv, req_labels, forb_raw_w, full_mask, cor_w, lab_t, s_t,
             d_t, in_t, out_t, n_states, m_eff, max_rounds,
             eng.config.chunk_words)
         return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
-                           compacted)
+                           compacted, syncs)
 
     def _run_legacy(self, plan: QueryPlan, jobs: np.ndarray,
                     special: tuple[int, ...]):
@@ -949,13 +966,14 @@ def answer_batch(index: TDRIndex,
     (a ``distributed.ShardMesh``; the call is then collective) the mesh's
     device is the device.  ``filters_only`` stops after the phase-1
     cascade (see ``answer_plan``)."""
-    t0 = time.perf_counter()
-    _check_device(index, device if mesh is None else mesh.device)
-    plan = compile_queries(index, queries, max_m=max_m, stats=stats)
+    stats = stats if stats is not None else QueryStats()
+    with spans.span("query.phase1", stats, "phase1_s"):
+        _check_device(index, device if mesh is None else mesh.device)
+        plan = compile_queries(index, queries, max_m=max_m, stats=stats)
     return answer_plan(index, plan, exact_chunk=exact_chunk, stats=stats,
                        filters_only=filters_only, backend=backend,
                        exact_mode=exact_mode, engine_config=engine_config,
-                       mesh=mesh, _t0=t0)
+                       mesh=mesh)
 
 
 def answer_plan(index: TDRIndex, plan: QueryPlan,
@@ -968,8 +986,7 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                 special_labels: Sequence[int] | None = None,
                 pin_m: int | None = None,
                 pad_lo: int = 16,
-                mesh=None,
-                _t0: float | None = None) -> np.ndarray:
+                mesh=None) -> np.ndarray:
     """Answer a compiled ``QueryPlan`` on the index's device.  Returns
     bool [plan.n_queries].
 
@@ -1009,34 +1026,36 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             "answer_plan serves kind='bool' plans only; route mixed-kind "
             "batches through answer_mixed (or dist_batch / witness / "
             "count_routes directly)")
-    t0 = _t0 if _t0 is not None else time.perf_counter()
+    stats = stats if stats is not None else QueryStats()
     if mesh is not None:
         _check_device(index, mesh.device)
-    eng = index.engine(backend, engine_config)
-    dev = index.device
-    stats = stats if stats is not None else QueryStats()
-    stats.n_queries += plan.n_queries
-    stats.n_jobs += plan.n_jobs
-    answers = np.zeros(plan.n_queries, dtype=bool)
-    if plan.n_jobs == 0:
-        return answers
+    with spans.span("query.phase1", stats, "phase1_s"):
+        eng = index.engine(backend, engine_config)
+        dev = index.device
+        stats.n_queries += plan.n_queries
+        stats.n_jobs += plan.n_jobs
+        answers = np.zeros(plan.n_queries, dtype=bool)
+        if plan.n_jobs == 0:
+            return answers
 
-    # pad the job axis onto the bucket grid (and, under a mesh, further to
-    # a multiple of its size)
-    plan_p = plan.pad_to(graph_mod.pad_bucket(plan.n_jobs, lo=pad_lo))
-    if mesh is not None:
-        plan_p = plan_p.pad_to(-(-plan_p.n_jobs // mesh.size) * mesh.size)
-        from . import distributed  # deferred: it imports this module
-        verdict = distributed.filter_cascade_sharded(index, plan_p, mesh)
-    else:
-        verdict = _cascade_rows(index, plan_p,
-                                slice(None)).cpu().numpy()
+        # pad the job axis onto the bucket grid (and, under a mesh, further
+        # to a multiple of its size)
+        plan_p = plan.pad_to(graph_mod.pad_bucket(plan.n_jobs, lo=pad_lo))
+        if mesh is not None:
+            plan_p = plan_p.pad_to(
+                -(-plan_p.n_jobs // mesh.size) * mesh.size)
+            from . import distributed  # deferred: it imports this module
+            verdict = distributed.filter_cascade_sharded(index, plan_p,
+                                                         mesh)
+        else:
+            verdict = _cascade_rows(index, plan_p,
+                                    slice(None)).cpu().numpy()
 
-    real = plan_p.qid >= 0
-    stats.filter_false += int(((verdict == FALSE) & real).sum())
-    stats.filter_true += int(((verdict == TRUE) & real).sum())
-    np.logical_or.at(answers, plan_p.qid[(verdict == TRUE) & real], True)
-    stats.phase1_s += time.perf_counter() - t0
+        real = plan_p.qid >= 0
+        stats.filter_false += int(((verdict == FALSE) & real).sum())
+        stats.filter_true += int(((verdict == TRUE) & real).sum())
+        np.logical_or.at(answers, plan_p.qid[(verdict == TRUE) & real],
+                         True)
 
     pending = np.flatnonzero((verdict == UNKNOWN) & real)
     # jobs whose query is already TRUE need no exact work
@@ -1049,95 +1068,103 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
     if len(pending) == 0:
         return answers
 
-    t1 = time.perf_counter()
-    ex = _executor(index, eng)
-    v_n = index.graph.n_vertices
-    special = _pinned(ex.special_labels(plan_p, pending), special_labels)
-    pd = None
-    if exact_mode != "legacy":
-        pd = PlanDevice(_to_long(plan_p.u, dev), _to_long(plan_p.v, dev),
-                        _to_long(plan_p.req_labels, dev),
-                        bitset.np_to_words(plan_p.forb_raw_w, dev),
-                        torch.from_numpy(plan_p.full_mask).to(dev))
+    with spans.span("query.phase2", stats, "phase2_s"):
+        ex = _executor(index, eng)
+        v_n = index.graph.n_vertices
+        special = _pinned(ex.special_labels(plan_p, pending), special_labels)
+        pd = None
+        if exact_mode != "legacy":
+            pd = PlanDevice(_to_long(plan_p.u, dev),
+                            _to_long(plan_p.v, dev),
+                            _to_long(plan_p.req_labels, dev),
+                            bitset.np_to_words(plan_p.forb_raw_w, dev),
+                            torch.from_numpy(plan_p.full_mask).to(dev))
 
-    # chunk layout + compaction probe: membership [P, V] is fetched only
-    # for the jobs of chunks that will actually compact
-    starts = list(range(0, len(pending), exact_chunk))
-    if exact_mode in ("full", "legacy"):
-        compact_flags = [False] * len(starts)
-    elif exact_mode == "compact":
-        compact_flags = [True] * len(starts)
-    else:
-        # summary-first probe skip: a chunk whose every job has ALL_ONE
-        # N_out[u] and N_in[v] rows has corridor == V exactly, so it runs
-        # on the full graph without a probe
-        flags = index.summary_flags()
-        jsat = (flags["sat_out"][plan_p.u[pending]]
-                & flags["sat_in"][plan_p.v[pending]])
-        sat_chunks = [bool(jsat[c0:c0 + exact_chunk].all())
-                      for c0 in starts]
-        stats.saturated_chunks += sum(sat_chunks)
-        compact_flags = [False] * len(starts)
-        probe_starts = [c0 for c0, s in zip(starts, sat_chunks) if not s]
-        if probe_starts:
-            probe_jobs = np.concatenate(
-                [pending[c0:c0 + exact_chunk] for c0 in probe_starts])
-            unions = ex.chunk_union_counts(pd, probe_jobs, exact_chunk)
-            for c0, u in zip(probe_starts, unions):
-                compact_flags[c0 // exact_chunk] = (
-                    graph_mod.pad_bucket(int(u), lo=32) < v_n)
-    # under a mesh each rank runs the chunks it owns; membership is
-    # fetched only for the compacted chunks this process runs
-    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
-    owners = _chunk_owners(compact_flags, size)
-    runs = [o == rank for o in owners]
-    member = None
-    mem_off = {}
-    if any(f and r for f, r in zip(compact_flags, runs)):
-        cjobs = np.concatenate(
-            [pending[c0:c0 + exact_chunk]
-             for c0, flag, run in zip(starts, compact_flags, runs)
-             if flag and run])
-        member = ex.corridor_members(pd, cjobs)
-        off = 0
-        for c0, flag, run in zip(starts, compact_flags, runs):
-            if flag and run:
-                n = len(pending[c0:c0 + exact_chunk])
-                mem_off[c0] = (off, off + n)
-                off += n
-
-    # per chunk: rounds, |V'|, |V|, compacted (zeros for another rank's)
-    parts = np.zeros((len(starts), 4), dtype=np.int32)
-    for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
-        if not runs[i]:
-            continue
-        jobs = pending[c0:c0 + exact_chunk]
-        real_n = len(jobs)
-        rows = member[slice(*mem_off[c0])] if flag else None
-        if real_n < exact_chunk:   # pad to the chunk width
-            jobs = np.concatenate(
-                [jobs, np.full(exact_chunk - real_n, jobs[0], np.int64)])
-            if rows is not None:
-                rows = np.concatenate(
-                    [rows, np.repeat(rows[:1], exact_chunk - real_n,
-                                     axis=0)])
-        res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode,
-                           pin_m)
-        reached = np.asarray(res.reached.cpu() if torch.is_tensor(
-            res.reached) else res.reached)[:real_n]
-        np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]], True)
-        parts[i] = (res.rounds, res.n_active, res.v_total, res.compacted)
-    if mesh is not None:
-        answers, parts = _combine_ranks(answers, parts, owners, mesh)
-    for rounds, n_active, v_total, compacted in parts.tolist():
-        stats._round_parts.append(rounds)
-        stats.corridor_active += n_active
-        stats.corridor_total += v_total
-        if compacted:
-            stats.compacted_chunks += 1
+        # chunk layout + compaction probe: membership [P, V] is fetched
+        # only for the jobs of chunks that will actually compact
+        starts = list(range(0, len(pending), exact_chunk))
+        if exact_mode in ("full", "legacy"):
+            compact_flags = [False] * len(starts)
+        elif exact_mode == "compact":
+            compact_flags = [True] * len(starts)
         else:
-            stats.full_chunks += 1
-    stats.phase2_s += time.perf_counter() - t1
+            # summary-first probe skip: a chunk whose every job has
+            # ALL_ONE N_out[u] and N_in[v] rows has corridor == V exactly,
+            # so it runs on the full graph without a probe
+            flags = index.summary_flags()
+            jsat = (flags["sat_out"][plan_p.u[pending]]
+                    & flags["sat_in"][plan_p.v[pending]])
+            sat_chunks = [bool(jsat[c0:c0 + exact_chunk].all())
+                          for c0 in starts]
+            stats.saturated_chunks += sum(sat_chunks)
+            compact_flags = [False] * len(starts)
+            probe_starts = [c0 for c0, s in zip(starts, sat_chunks)
+                            if not s]
+            if probe_starts:
+                probe_jobs = np.concatenate(
+                    [pending[c0:c0 + exact_chunk] for c0 in probe_starts])
+                unions = ex.chunk_union_counts(pd, probe_jobs, exact_chunk)
+                for c0, u in zip(probe_starts, unions):
+                    compact_flags[c0 // exact_chunk] = (
+                        graph_mod.pad_bucket(int(u), lo=32) < v_n)
+        # under a mesh each rank runs the chunks it owns; membership is
+        # fetched only for the compacted chunks this process runs
+        size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        owners = _chunk_owners(compact_flags, size)
+        runs = [o == rank for o in owners]
+        member = None
+        mem_off = {}
+        if any(f and r for f, r in zip(compact_flags, runs)):
+            cjobs = np.concatenate(
+                [pending[c0:c0 + exact_chunk]
+                 for c0, flag, run in zip(starts, compact_flags, runs)
+                 if flag and run])
+            member = ex.corridor_members(pd, cjobs)
+            off = 0
+            for c0, flag, run in zip(starts, compact_flags, runs):
+                if flag and run:
+                    n = len(pending[c0:c0 + exact_chunk])
+                    mem_off[c0] = (off, off + n)
+                    off += n
+
+        # per chunk: rounds, |V'|, |V|, compacted, host syncs (zeros for
+        # another rank's); the seconds waited in the syncs are this
+        # process's own
+        parts = np.zeros((len(starts), 5), dtype=np.int32)
+        for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
+            if not runs[i]:
+                continue
+            jobs = pending[c0:c0 + exact_chunk]
+            real_n = len(jobs)
+            rows = member[slice(*mem_off[c0])] if flag else None
+            if real_n < exact_chunk:   # pad to the chunk width
+                jobs = np.concatenate(
+                    [jobs, np.full(exact_chunk - real_n, jobs[0],
+                                   np.int64)])
+                if rows is not None:
+                    rows = np.concatenate(
+                        [rows, np.repeat(rows[:1], exact_chunk - real_n,
+                                         axis=0)])
+            res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode,
+                               pin_m)
+            reached = np.asarray(res.reached.cpu() if torch.is_tensor(
+                res.reached) else res.reached)[:real_n]
+            np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]],
+                             True)
+            parts[i] = (res.rounds, res.n_active, res.v_total,
+                        res.compacted, res.syncs.n)
+            stats.sync_wait_s += res.syncs.wait_s
+        if mesh is not None:
+            answers, parts = _combine_ranks(answers, parts, owners, mesh)
+        for rounds, n_active, v_total, compacted, syncs in parts.tolist():
+            stats._round_parts.append(rounds)
+            stats.host_syncs += syncs
+            stats.corridor_active += n_active
+            stats.corridor_total += v_total
+            if compacted:
+                stats.compacted_chunks += 1
+            else:
+                stats.full_chunks += 1
     return answers
 
 
@@ -1247,23 +1274,25 @@ def _dist_bidi_loop(df0, db0, push_f, push_b, full_mask, it_cap: int,
     every product distance <= it exactly, so any path of length <= 2·it
     has met.  The loop test runs before each round, and a direction whose
     last push relaxed nothing skips its push, as in the JAX package; one
-    host sync per round reads the three flags."""
+    host sync per round reads the three flags.  Returns ``(best, rounds,
+    syncs)``."""
+    syncs = spans.Syncs()
     df, db = df0, db0
     best = _dist_meet(df, db, full_mask,
                       torch.full((df.shape[1],), _DBIG, dtype=torch.int32,
                                  device=df.device), n_states)
     cf, cb, it = True, True, 0
-    all_done = bool((best <= 0).all())
+    all_done = syncs.read((best <= 0).all())
     while (cf or cb) and not all_done and it < max_rounds and it < it_cap:
         ndf = torch.minimum(df, push_f(df)) if cf else df
         ndb = torch.minimum(db, push_b(db)) if cb else db
         best = _dist_meet(ndf, ndb, full_mask, best, n_states)
         it += 1
-        cf, cb, all_done = torch.stack(
+        cf, cb, all_done = syncs.read(torch.stack(
             [(ndf != df).any(), (ndb != db).any(),
-             (best <= 2 * it).all()]).tolist()
+             (best <= 2 * it).all()]))
         df, db = ndf, ndb
-    return best, it
+    return best, it, syncs
 
 
 def _dist_seed(idx, v_p: int, n_states: int):
@@ -1521,61 +1550,63 @@ def dist_batch(index: TDRIndex,
     ``special_labels`` and ``pin_m`` are the serving pins of
     ``answer_plan``.  ``device`` defaults to the card and must be where
     ``index`` lives."""
-    t0 = time.perf_counter()
     stats = stats if stats is not None else QueryStats()
-    plan, eng, ex, m_eff, n_states, pd = _kind_setup(
-        index, queries, max_m=max_m, backend=backend,
-        engine_config=engine_config, stats=stats, device=device,
-        what="dist", exact_mode=exact_mode, pin_m=pin_m)
-    stats.n_queries += plan.n_queries
-    stats.n_jobs += plan.n_jobs
-    out = np.full(plan.n_queries, -1, np.int64)
-    if plan.n_jobs == 0:
+    with spans.span("query.phase2", stats, "phase2_s"):
+        plan, eng, ex, m_eff, n_states, pd = _kind_setup(
+            index, queries, max_m=max_m, backend=backend,
+            engine_config=engine_config, stats=stats, device=device,
+            what="dist", exact_mode=exact_mode, pin_m=pin_m)
+        stats.n_queries += plan.n_queries
+        stats.n_jobs += plan.n_jobs
+        out = np.full(plan.n_queries, -1, np.int64)
+        if plan.n_jobs == 0:
+            return out
+        dev = index.device
+        best_j = np.full(plan.n_jobs, _DBIG, np.int64)
+        for c0 in range(0, plan.n_jobs, exact_chunk):
+            jobs = np.arange(c0, min(c0 + exact_chunk, plan.n_jobs))
+            real_n = len(jobs)
+            if real_n < exact_chunk:   # pad the chunk with its first job
+                jobs = np.concatenate(
+                    [jobs, np.full(exact_chunk - real_n, jobs[0])])
+            ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+            max_rounds = ch.v_p * n_states + 1
+            it_cap = max_rounds if k is None else max(-(-int(k) // 2), 0)
+            jobs_t = _to_long(jobs, dev)
+            req = pd.req_labels[jobs_t][:, :m_eff]
+            frw = pd.forb_raw_w[jobs_t]
+            fm = pd.full_mask[jobs_t]
+            su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
+            stacks = None
+            if eng.backend == "matmul":
+                stacks = _class_stacks(
+                    eng, _pinned(ex.special_labels(plan, jobs),
+                                 special_labels),
+                    ch.v_p, _chunk_edges(ch))
+            if stacks is not None:
+                best, rounds, syncs = _dist_bidi_matmul(
+                    su, sv, req, frw, fm, *stacks, it_cap, n_states, m_eff,
+                    max_rounds)
+            else:
+                best, rounds, syncs = _dist_bidi(
+                    su, sv, req, frw, fm, _to_long(ch.src, dev),
+                    _to_long(ch.dst, dev), _to_long(ch.lab, dev),
+                    torch.from_numpy(ch.evalid).to(dev), it_cap, ch.v_p,
+                    n_states, m_eff, max_rounds)
+            best_j[jobs[:real_n]] = best.cpu().numpy()[:real_n]
+            stats._round_parts.append(rounds)
+            stats.host_syncs += syncs.n
+            stats.sync_wait_s += syncs.wait_s
+            stats.corridor_active += ch.n_sub
+            stats.corridor_total += index.graph.n_vertices
+        bq = np.full(plan.n_queries, _DBIG, np.int64)
+        np.minimum.at(bq, plan.qid, best_j)
+        reach = bq < _DBIG
+        out[reach] = bq[reach]
+        if k is not None:
+            out[out > int(k)] = -1
+        stats.exact_jobs += plan.n_jobs
         return out
-    dev = index.device
-    best_j = np.full(plan.n_jobs, _DBIG, np.int64)
-    for c0 in range(0, plan.n_jobs, exact_chunk):
-        jobs = np.arange(c0, min(c0 + exact_chunk, plan.n_jobs))
-        real_n = len(jobs)
-        if real_n < exact_chunk:   # pad the chunk with its first job
-            jobs = np.concatenate(
-                [jobs, np.full(exact_chunk - real_n, jobs[0])])
-        ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
-        max_rounds = ch.v_p * n_states + 1
-        it_cap = max_rounds if k is None else max(-(-int(k) // 2), 0)
-        jobs_t = _to_long(jobs, dev)
-        req = pd.req_labels[jobs_t][:, :m_eff]
-        frw = pd.forb_raw_w[jobs_t]
-        fm = pd.full_mask[jobs_t]
-        su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
-        stacks = None
-        if eng.backend == "matmul":
-            stacks = _class_stacks(
-                eng, _pinned(ex.special_labels(plan, jobs), special_labels),
-                ch.v_p, _chunk_edges(ch))
-        if stacks is not None:
-            best, rounds = _dist_bidi_matmul(
-                su, sv, req, frw, fm, *stacks, it_cap, n_states, m_eff,
-                max_rounds)
-        else:
-            best, rounds = _dist_bidi(
-                su, sv, req, frw, fm, _to_long(ch.src, dev),
-                _to_long(ch.dst, dev), _to_long(ch.lab, dev),
-                torch.from_numpy(ch.evalid).to(dev), it_cap, ch.v_p,
-                n_states, m_eff, max_rounds)
-        best_j[jobs[:real_n]] = best.cpu().numpy()[:real_n]
-        stats._round_parts.append(rounds)
-        stats.corridor_active += ch.n_sub
-        stats.corridor_total += index.graph.n_vertices
-    bq = np.full(plan.n_queries, _DBIG, np.int64)
-    np.minimum.at(bq, plan.qid, best_j)
-    reach = bq < _DBIG
-    out[reach] = bq[reach]
-    if k is not None:
-        out[out > int(k)] = -1
-    stats.exact_jobs += plan.n_jobs
-    stats.phase2_s += time.perf_counter() - t0
-    return out
 
 
 def dist(index: TDRIndex, u: int, v: int, p: pat.Pattern, **kw) -> int:
@@ -1942,128 +1973,135 @@ def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
     if q_unroll is not None and q_unroll not in (4, 8, 16, 32):
         raise ValueError(f"q_unroll must be a power of two in 4..32, "
                          f"got {q_unroll!r}")
-    t0 = time.perf_counter()
-    _check_device(index, device)
-    eng = index.engine(backend, engine_config)
     stats = stats if stats is not None else QueryStats()
     out = np.zeros(len(queries), dtype=bool)
-    if not queries:
-        return out
-    rows = [rpq_rows(index, r, max_m, stats=stats) for (_, _, r) in queries]
-    plan_kw = dict(exact_chunk=exact_chunk, stats=stats, backend=backend,
-                   exact_mode=exact_mode, engine_config=engine_config,
-                   special_labels=special_labels, pin_m=pin_m,
-                   pad_lo=pad_lo)
+    # the planning stretch holds the lowered and filter answer_plan calls,
+    # which count their own phases; it counts as phase 1 once the product
+    # route runs
+    with spans.span("query.phase1") as phase1:
+        _check_device(index, device)
+        eng = index.engine(backend, engine_config)
+        if not queries:
+            return out
+        rows = [rpq_rows(index, r, max_m, stats=stats)
+                for (_, _, r) in queries]
+        plan_kw = dict(exact_chunk=exact_chunk, stats=stats,
+                       backend=backend, exact_mode=exact_mode,
+                       engine_config=engine_config,
+                       special_labels=special_labels, pin_m=pin_m,
+                       pad_lo=pad_lo)
 
-    low_ix = [i for i, rw in enumerate(rows) if rw.lowered is not None]
-    if low_ix:
-        lowq = [(queries[i][0], queries[i][1], rows[i].lowered)
-                for i in low_ix]
-        plan = compile_queries(index, lowq, max_m=max_m, stats=stats)
-        out[low_ix] = answer_plan(index, plan, **plan_kw)
+        low_ix = [i for i, rw in enumerate(rows) if rw.lowered is not None]
+        if low_ix:
+            lowq = [(queries[i][0], queries[i][1], rows[i].lowered)
+                    for i in low_ix]
+            plan = compile_queries(index, lowq, max_m=max_m, stats=stats)
+            out[low_ix] = answer_plan(index, plan, **plan_kw)
 
-    hard_ix = []
-    for i, rw in enumerate(rows):
-        if rw.lowered is not None:
-            continue
-        if queries[i][0] == queries[i][1] and rw.nullable:
-            out[i] = True       # the empty path spells ε
-        elif rw.feasible:
-            hard_ix.append(i)   # infeasible: out[i] stays False
-    if not hard_ix:
-        return out
+        hard_ix = []
+        for i, rw in enumerate(rows):
+            if rw.lowered is not None:
+                continue
+            if queries[i][0] == queries[i][1] and rw.nullable:
+                out[i] = True       # the empty path spells ε
+            elif rw.feasible:
+                hard_ix.append(i)   # infeasible: out[i] stays False
+        if not hard_ix:
+            return out
 
-    # phase 1: the cascade on the over-approximation.  A FALSE verdict
-    # refutes the RPQ (every matching word satisfies the approximation);
-    # filters_only returns the sound upper bound TRUE ∪ UNKNOWN
-    approxq = [(queries[i][0], queries[i][1], rows[i].approx)
-               for i in hard_ix]
-    aplan = compile_queries(index, approxq, max_m=max_m, stats=stats)
-    ub = answer_plan(index, aplan, filters_only=True, **plan_kw)
-    pos_of = {i: k for k, i in enumerate(hard_ix)}  # aplan job per query
-    hard_ix = [i for i, alive in zip(hard_ix, ub) if alive]
-    if not hard_ix:
-        return out
+        # phase 1: the cascade on the over-approximation.  A FALSE verdict
+        # refutes the RPQ (every matching word satisfies the approximation);
+        # filters_only returns the sound upper bound TRUE ∪ UNKNOWN
+        approxq = [(queries[i][0], queries[i][1], rows[i].approx)
+                   for i in hard_ix]
+        aplan = compile_queries(index, approxq, max_m=max_m, stats=stats)
+        ub = answer_plan(index, aplan, filters_only=True, **plan_kw)
+        pos_of = {i: k for k, i in enumerate(hard_ix)}  # aplan job/query
+        hard_ix = [i for i, alive in zip(hard_ix, ub) if alive]
+        if not hard_ix:
+            return out
+    stats.phase1_s += phase1.seconds
 
     # phase 2: automaton-product expansion.  The approx plan has one term
     # per query (job k is approxq position k), so it doubles as the
     # endpoint plan and the corridor's source.
-    t1 = time.perf_counter()
-    dev = index.device
-    ex = _executor(index, eng)
-    jobs_all = np.asarray([pos_of[i] for i in hard_ix], dtype=np.int64)
-    pd = PlanDevice(_to_long(aplan.u, dev), _to_long(aplan.v, dev),
-                    _to_long(aplan.req_labels, dev),
-                    bitset.np_to_words(aplan.forb_raw_w, dev),
-                    torch.from_numpy(aplan.full_mask).to(dev))
-    n_labels = index.graph.n_labels
-    done_all = np.zeros(len(jobs_all), dtype=bool)
-    for c0 in range(0, len(jobs_all), exact_chunk):
-        jobs = jobs_all[c0:c0 + exact_chunk]
-        real_n = len(jobs)
-        if real_n < exact_chunk:    # pad the chunk with its first job
-            jobs = np.concatenate(
-                [jobs, np.full(exact_chunk - real_n, jobs[0])])
-        ch = _kind_chunk(index, ex, aplan, pd, jobs, exact_mode)
-        qrows = [rows[hard_ix[c0 + (j if j < real_n else 0)]]
-                 for j in range(len(jobs))]
-        q_u = 4
-        while q_u < max(rw.nfa_states for rw in qrows):
-            q_u *= 2
-        if q_unroll is not None:
-            q_u = max(q_u, q_unroll)
-        max_rounds = ch.v_p * q_u + 1    # product-graph diameter bound
-        tabs = bitset.np_to_words(np.stack([rw.tab for rw in qrows]), dev)
-        rtabs = bitset.np_to_words(np.stack([rw.rtab for rw in qrows]), dev)
-        accept = torch.tensor([_i32(rw.accept) for rw in qrows],
-                              dtype=torch.int32, device=dev)
-        su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
-        done = None
-        # the matmul route needs a real edge in the corridor: with none,
-        # the packed padding edge 0->0 would make up a letter
-        if eng.backend == "matmul" and ch.evalid.any():
-            special = set()
-            for rw in qrows:
-                special.update(rw.alpha)
-            if special_labels is not None:
-                special.update(int(l) for l in special_labels
-                               if 0 <= int(l) < n_labels)
-            stacks = _class_stacks(eng, tuple(sorted(special)), ch.v_p,
-                                   _chunk_edges(ch))
-            if stacks is not None:
-                done, rounds = _rpq_bidi_matmul(
-                    su, sv, tabs, rtabs, accept, *stacks,
-                    max_rounds=max_rounds, q_u=q_u)
-        if done is None:
-            # padded-incidence gathers over the real edges only; degree
-            # skew past the cap falls back to masked segment-ORs
-            e_real = int(ch.evalid.sum())
-            e_p = int(ch.src.shape[0])
-            ids_in = ids_out = None
-            if e_real:
-                plan_in = graph_mod.incidence_plan(
-                    ch.dst[:e_real], ch.v_p, e_p)
-                plan_out = graph_mod.incidence_plan(
-                    ch.src[:e_real], ch.v_p, e_p)
-                gb = sum(a.size for a in plan_in + plan_out) * \
-                    len(jobs) * 4
-                if gb <= ExactExecutor.GATHER_BYTES_CAP:
-                    ids_in = tuple(_to_long(a, dev) for a in plan_in)
-                    ids_out = tuple(_to_long(a, dev) for a in plan_out)
-            done, rounds = _rpq_bidi(
-                su, sv, tabs, rtabs, accept, _to_long(ch.src, dev),
-                _to_long(ch.dst, dev), _to_long(ch.lab, dev),
-                torch.from_numpy(ch.evalid).to(dev), ids_in, ids_out,
-                v_p=ch.v_p, max_rounds=max_rounds,
-                chunk_words=eng.config.chunk_words, q_u=q_u)
-        done_all[c0:c0 + real_n] = done.cpu().numpy()[:real_n]
-        stats._round_parts.append(rounds)
-        stats.corridor_active += ch.n_sub
-        stats.corridor_total += index.graph.n_vertices
+    with spans.span("query.phase2", stats, "phase2_s"):
+        dev = index.device
+        ex = _executor(index, eng)
+        jobs_all = np.asarray([pos_of[i] for i in hard_ix], dtype=np.int64)
+        pd = PlanDevice(_to_long(aplan.u, dev), _to_long(aplan.v, dev),
+                        _to_long(aplan.req_labels, dev),
+                        bitset.np_to_words(aplan.forb_raw_w, dev),
+                        torch.from_numpy(aplan.full_mask).to(dev))
+        n_labels = index.graph.n_labels
+        done_all = np.zeros(len(jobs_all), dtype=bool)
+        for c0 in range(0, len(jobs_all), exact_chunk):
+            jobs = jobs_all[c0:c0 + exact_chunk]
+            real_n = len(jobs)
+            if real_n < exact_chunk:    # pad the chunk with its first job
+                jobs = np.concatenate(
+                    [jobs, np.full(exact_chunk - real_n, jobs[0])])
+            ch = _kind_chunk(index, ex, aplan, pd, jobs, exact_mode)
+            qrows = [rows[hard_ix[c0 + (j if j < real_n else 0)]]
+                     for j in range(len(jobs))]
+            q_u = 4
+            while q_u < max(rw.nfa_states for rw in qrows):
+                q_u *= 2
+            if q_unroll is not None:
+                q_u = max(q_u, q_unroll)
+            max_rounds = ch.v_p * q_u + 1    # product-graph diameter bound
+            tabs = bitset.np_to_words(np.stack([rw.tab for rw in qrows]), dev)
+            rtabs = bitset.np_to_words(np.stack([rw.rtab for rw in qrows]),
+                                       dev)
+            accept = torch.tensor([_i32(rw.accept) for rw in qrows],
+                                  dtype=torch.int32, device=dev)
+            su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
+            done = None
+            # the matmul route needs a real edge in the corridor: with none,
+            # the packed padding edge 0->0 would make up a letter
+            if eng.backend == "matmul" and ch.evalid.any():
+                special = set()
+                for rw in qrows:
+                    special.update(rw.alpha)
+                if special_labels is not None:
+                    special.update(int(l) for l in special_labels
+                                   if 0 <= int(l) < n_labels)
+                stacks = _class_stacks(eng, tuple(sorted(special)), ch.v_p,
+                                       _chunk_edges(ch))
+                if stacks is not None:
+                    done, rounds, syncs = _rpq_bidi_matmul(
+                        su, sv, tabs, rtabs, accept, *stacks,
+                        max_rounds=max_rounds, q_u=q_u)
+            if done is None:
+                # padded-incidence gathers over the real edges only; degree
+                # skew past the cap falls back to masked segment-ORs
+                e_real = int(ch.evalid.sum())
+                e_p = int(ch.src.shape[0])
+                ids_in = ids_out = None
+                if e_real:
+                    plan_in = graph_mod.incidence_plan(
+                        ch.dst[:e_real], ch.v_p, e_p)
+                    plan_out = graph_mod.incidence_plan(
+                        ch.src[:e_real], ch.v_p, e_p)
+                    gb = sum(a.size for a in plan_in + plan_out) * \
+                        len(jobs) * 4
+                    if gb <= ExactExecutor.GATHER_BYTES_CAP:
+                        ids_in = tuple(_to_long(a, dev) for a in plan_in)
+                        ids_out = tuple(_to_long(a, dev) for a in plan_out)
+                done, rounds, syncs = _rpq_bidi(
+                    su, sv, tabs, rtabs, accept, _to_long(ch.src, dev),
+                    _to_long(ch.dst, dev), _to_long(ch.lab, dev),
+                    torch.from_numpy(ch.evalid).to(dev), ids_in, ids_out,
+                    v_p=ch.v_p, max_rounds=max_rounds,
+                    chunk_words=eng.config.chunk_words, q_u=q_u)
+            done_all[c0:c0 + real_n] = done.cpu().numpy()[:real_n]
+            stats._round_parts.append(rounds)
+            stats.host_syncs += syncs.n
+            stats.sync_wait_s += syncs.wait_s
+            stats.corridor_active += ch.n_sub
+            stats.corridor_total += index.graph.n_vertices
     out[hard_ix] = done_all
     stats.exact_jobs += len(jobs_all)
-    stats.phase2_s += time.perf_counter() - t1
-    stats.phase1_s += t1 - t0
     return out
 
 

@@ -48,7 +48,8 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
            "repro_torch.launch.dryrun", "repro_torch.launch.perf",
            "repro_torch.utils", "repro_torch.utils.cost",
-           "repro_torch.utils.roofline", "repro_torch.utils.report")
+           "repro_torch.utils.roofline", "repro_torch.utils.report",
+           "repro_torch.utils.spans")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                        r"|from\s+repro(\.|\s)(?!_))", re.M)
 
