@@ -24,7 +24,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    closures, the first (``base_v``) and the late delta frontier with the
    fewest live k-blocks (recorded by a spy on ``ops.frontier_step_sparse``
    during the main path's build), each also against dense
-   ``bitset_matmul`` on the same adjacency.  Times are medians of CUDA
+   ``bitset_matmul`` on the same adjacency; ``class_round`` on the
+   operands of one mid-chunk round of the main path's ``answer_batch``
+   (4 subset states) and of ``answer_plan`` with ``pin_m=4`` on the same
+   queries (16 states), each recorded by a spy on ``ops.class_round``,
+   also against the eager round it replaced (one ``bitset_matmul`` per
+   label class and direction and the round's torch ops), whose device
+   and wall times are printed beside it.  Times are medians of CUDA
    event timings after a warm-up.
 3. Cross-checks: the same graph built and answered with
    ``backend="segment"`` (plain torch, no kernels) gives identical planes,
@@ -261,6 +267,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet non-tensor 32-bit rate
 KERNEL_REPS = 20
 PLAIN_REPS = 5
+CLASS_ROUND_CALL = 5   # call 0 is a chunk's first meet; 1.. its rounds
 SLEEP_CYCLES = 20_000_000      # ~10 ms of device sleep per timed call
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
 # every array an index stores: the planes and the maintenance state
@@ -1542,7 +1549,7 @@ def shard_phase(torch, cfg, idx, answers, stats) -> str | None:
           f"index, closure (dense and row_budget={SHARD_BUDGET}), answers "
           f"and QueryStats equal phase 1's, and its V={N_PAPER} index the "
           f"single-device segment build's")
-    for kname in ("bitset_matmul", "way_filter"):
+    for kname in ("class_round", "way_filter"):
         if sum(rep["answer_launches"].get(kname, 0) for rep in reports) <= 0:
             return f"{kname} was not launched by a rank's sharded answers"
     return None
@@ -2585,6 +2592,105 @@ def lane_rows(torch, g, eng, eng_s, a_dist, x_dist, n_dist: int, record,
     return None if ok else "lane_matmul disagrees with its plain version"
 
 
+def class_round_capture(ops, run):
+    """Runs ``run()`` with a spy on ``ops.class_round`` -> ``(run()'s
+    result, the operands of the first call from ``CLASS_ROUND_CALL`` on
+    with both directions on (a mid-chunk round), the calls made)``."""
+    real = ops.class_round
+    calls = {"n": 0, "args": None}
+
+    def spy(*args):   # observes one call's operands; computes nothing
+        calls["n"] += 1
+        if calls["n"] > CLASS_ROUND_CALL and calls["args"] is None \
+                and all(args[-2:]):
+            calls["args"] = args
+        return real(*args)
+
+    ops.class_round = spy
+    try:
+        out = run()
+    finally:
+        ops.class_round = real
+    return out, calls["args"], calls["n"]
+
+
+def eager_class_round(torch, engine, ref, bitset, args, done):
+    """The round as the loop ran it before ``class_round``: one
+    ``bitset_matmul`` launch per label class and direction, the subset
+    transitions, the mask, the new bits and the meet in torch ops, and the
+    stack of the loop's three flags; ``done`` is the unpacked ``done_w``."""
+    adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b, _, cf, cb = args
+
+    def push(adj, x):
+        upd = torch.zeros_like(x)
+        for c in range(adj.shape[0]):
+            y = engine._matmul_rows(adj[c], x)[:x.shape[0]]
+            upd = upd | ref.subset_transition(
+                y & allow[c][None, :], has[c][None, :], sh[c][None, :])
+        return upd
+
+    mask = cor_w & bitset.full_words_where(~done)[None, :]
+    new_f = push(adj_rev, f) & mask & ~f if cf else torch.zeros_like(f)
+    f = f | new_f
+    new_b = push(adj_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
+    b = b | new_b
+    done = done | ref.subset_meet(f, b, sup_need)
+    return f, b, torch.stack(
+        [(new_f != 0).any(), (new_b != 0).any(), done.all()])
+
+
+def class_round_row(torch, engine, ops, ref, bitset, record, args,
+                    n_launches=None) -> bool:
+    """``class_round`` on one captured round's operands against
+    ``ref.class_round_ref`` (tolerance 0 in ``f_next``, ``b_next`` and the
+    state words) and against the eager round it replaced (``f_next``,
+    ``b_next``), with its row of the ``kernels`` line; then the kernel's
+    profiled time and the eager round's device time (profiler), wall time
+    between CUDA events with no sleep ahead (its launches included) and
+    device kernels a round."""
+    adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b, done_w = \
+        args[:10]
+    c1, v_p, kw = adj_rev.shape
+    q, n_states = f.shape[1], sup_need.shape[0]
+    name = f"class_round[S={n_states}]"
+    done = bitset.unpack_bits(done_w, q)
+    got = ops.class_round(*args)
+    want = ref.class_round_ref(*args)
+    eager = eager_class_round(torch, engine, ref, bitset, args, done)
+    err = max([words_err(torch, g, w) for g, w in zip(got, want)]
+              + [words_err(torch, g, w) for g, w in zip(got[:2], eager[:2])])
+    set_bits = sum(int(bitset.popcount(a.reshape(-1, 1)).sum())
+                   for stack in (adj_rev, adj_fwd) for a in stack)
+    print(f"{name}: stacks {tuple(adj_rev.shape)} x 2 ({set_bits} set "
+          f"bits), Q = {q}, {n_states} states; frontier rows "
+          f"{int((f != 0).any(dim=1).sum())} forward, "
+          f"{int((b != 0).any(dim=1).sum())} backward")
+    # bytes: both dense class stacks once, f, b and the corridor in,
+    # f_next and b_next out; operations: a test of every stack word, an
+    # OR per set bit and query column, and the transition's six per
+    # class, row and column in each direction
+    good = record(
+        name, "src/repro_torch/kernels/csrc/class_round.cu",
+        "none: src/repro/core/tdr_query.py:630 (_bidi_matmul_core)",
+        got[0], want[0], lambda: ops.class_round(*args),
+        lambda: ref.class_round_ref(*args),
+        2 * adj_rev.numel() * 4 + 5 * v_p * q * 4,
+        2 * adj_rev.numel() + set_bits * q + 2 * 6 * c1 * v_p * q,
+        n_launches=n_launches, err=err)
+    profiled_kernels(torch, name, lambda: ops.class_round(*args))
+    wall = time_ms(torch, lambda: eager_class_round(
+        torch, engine, ref, bitset, args, done), PLAIN_REPS, queued=False)
+    _, busy, top, n_k = profile(torch, lambda: [
+        eager_class_round(torch, engine, ref, bitset, args, done)
+        for _ in range(PLAIN_REPS)])
+    print(f"{name} eager round it replaced: device "
+          f"{1e3 * busy / PLAIN_REPS:.4f} ms, wall {wall:.4f} ms between "
+          f"CUDA events, {n_k / PLAIN_REPS:.1f} device kernels a round; top "
+          + "; ".join(f"{k} {ms / PLAIN_REPS:.4f} ms x{n / PLAIN_REPS:g}"
+                      for k, ms, n in top))
+    return good
+
+
 def make_record(torch, rows: list, launches: dict):
     """A function that checks one kernel call against its plain version
     (tolerance 0), times the kernel, the plain version and the library
@@ -2679,8 +2785,10 @@ def smoke(torch, background: dict) -> int:
     mem_after_build = torch.cuda.memory_allocated()
     stats = tdr_query.QueryStats()
     t0 = time.perf_counter()
-    answers = tdr_query.answer_batch(idx, queries, exact_mode="auto",
-                                     exact_chunk=EXACT_CHUNK, stats=stats)
+    answers, round_main, _ = class_round_capture(
+        ops, lambda: tdr_query.answer_batch(
+            idx, queries, exact_mode="auto", exact_chunk=EXACT_CHUNK,
+            stats=stats))
     torch.cuda.synchronize()
     answer_s = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
@@ -2836,11 +2944,24 @@ def smoke(torch, background: dict) -> int:
         del a_unp_c
     comp = comp_f
     del a_unp
+
+    # class_round at a mid-chunk round of the main path (4 subset states)
+    # and of the same queries pinned to max_m = 4 as a server pins them
+    # (16 states)
+    plan_m4 = tdr_query.compile_queries(idx, queries, max_m=4)
+    _, round_m4, n_m4 = class_round_capture(
+        ops, lambda: tdr_query.answer_plan(idx, plan_m4, pin_m=4))
+    ok &= class_round_row(torch, engine, ops, ref, bitset, record,
+                          round_main)
+    ok &= class_round_row(torch, engine, ops, ref, bitset, record, round_m4,
+                          n_launches=n_m4)
+    del round_main, round_m4
     if not ok:
         return fail("a kernel disagrees with its plain version")
 
     # ---- 3. cross-checks -------------------------------------------------
-    for name in ("bitset_matmul", "way_filter", "block_sparse_matmul"):
+    for name in ("bitset_matmul", "way_filter", "block_sparse_matmul",
+                 "class_round"):
         if launches.get(name, 0) <= 0:
             return fail(f"{name} was not launched on the main path")
     seg_cfg = engine.EngineConfig(backend="segment",

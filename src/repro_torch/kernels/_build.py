@@ -33,7 +33,8 @@ LIBRARY_EVENTS: collections.Counter = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitset_matmul.cu", "way_filter.cu", "block_sparse.cu",
-           "lane_matmul.cu", "block_sparse_lane.cu", "popcount.cu")
+           "lane_matmul.cu", "block_sparse_lane.cu", "popcount.cu",
+           "class_round.cu")
 HEADERS = ("lane_ops.cuh",)   # included by sources; part of the build hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +48,7 @@ _ARGTYPES = {
     "tdr_lane_matmul": [_P, _P, _P] + [_I] * 5 + [_U, _P],
     "tdr_block_sparse_lane_matmul": [_P] * 8 + [_I] * 13 + [_U, _P],
     "tdr_popcount_rows": [_P, _P, _I, _I, _I, _P],
+    "tdr_class_round": [_P] * 13 + [_I] * 8 + [_P],
 }
 
 

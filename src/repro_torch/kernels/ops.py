@@ -15,6 +15,7 @@ from ._build import KERNEL_LAUNCHES  # noqa: F401  (re-exported)
 from .bitset_matmul import cuda_bitset_matmul
 from .block_sparse import (block_sparse_lane_matmul,  # noqa: F401
                            cuda_block_sparse_matmul)
+from .class_round import cuda_class_round
 from .lane_matmul import cuda_lane_matmul
 from .pattern_filter import cuda_way_filter, cuda_way_filter_at
 from .popcount import cuda_popcount_rows
@@ -27,6 +28,19 @@ def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a_packed.is_cuda:
         return cuda_bitset_matmul(a_packed, x.contiguous())
     return ref.bitset_matmul_ref(a_packed, x)
+
+
+def class_round(adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b,
+                done_w, cf: bool, cb: bool):
+    """One phase-2 boolean round of the bidirectional subset expansion on
+    label-class stacks -> ``(f_next, b_next, state)``; ``state`` is int32
+    ``[forward added, backward added, done words...]`` (see
+    ``ref.class_round_ref``)."""
+    if f.is_cuda:
+        return cuda_class_round(adj_rev, adj_fwd, allow, has, sh, sup_need,
+                                cor_w, f, b, done_w, cf, cb)
+    return ref.class_round_ref(adj_rev, adj_fwd, allow, has, sh, sup_need,
+                               cor_w, f, b, done_w, cf, cb)
 
 
 def frontier_step_mxu(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

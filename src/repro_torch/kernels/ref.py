@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six hand kernels.
+"""Plain PyTorch versions of the seven hand kernels.
 
 Each function computes what its CUDA kernel computes, on either device,
 with packed words as int32 and semiring lanes in their stored width (see
@@ -266,3 +266,64 @@ def block_sparse_lane_matmul_ref(comp: BlockCompressed, x: torch.Tensor, *,
     if op == "sum":
         out = out.clamp(max=cap)
     return narrow(out, bits)[:m]
+
+
+# ------------------------------------------------- phase-2 boolean rounds
+def subset_transition(val, has, sh):
+    """Apply subset transition ``s -> s | m`` to packed state bitfields:
+    ``has`` masks the states that already hold the edge's required label
+    (they stay), the rest shift up by ``sh = 2^i``.  ``has = ~0, sh = 0``
+    is the identity."""
+    return (val & has) | ((val & ~has) << sh)
+
+
+def subset_meet(f, b, sup_need):
+    """done[q] = ∃ vertex x, states s1 ∈ f[x,q], s2 ∈ b[x,q] with
+    ``s1 | s2 == full_mask[q]`` (the bidirectional termination test);
+    ``sup_need[s1, q]`` masks the backward states completing ``s1``."""
+    done = torch.zeros(f.shape[1], dtype=torch.bool, device=f.device)
+    for s1 in range(sup_need.shape[0]):
+        hit = (((f >> s1) & 1) != 0) & ((b & sup_need[s1][None, :]) != 0)
+        done |= hit.any(dim=0)
+    return done
+
+
+def class_push_ref(adj, x, allow, has, sh):
+    """OR over label classes ``c`` of ``T_c((A_c ⊗ X) & allow[c])``: one
+    ``bitset_matmul_ref`` per class of ``adj`` [C+1, V', Kw] on ``x``
+    [V', Q] (its rows zero-padded to ``Kw * 32``), each class's subset
+    transition, OR-ed -> [V', Q]."""
+    v_p = x.shape[0]
+    k = adj.shape[2] * WORD
+    if k > v_p:
+        x_k = torch.cat([x, x.new_zeros((k - v_p, x.shape[1]))])
+    else:
+        x_k = x
+    upd = torch.zeros_like(x)
+    for c in range(adj.shape[0]):
+        y = bitset_matmul_ref(adj[c], x_k)
+        upd = upd | subset_transition(y & allow[c][None, :], has[c][None, :],
+                                      sh[c][None, :])
+    return upd
+
+
+def class_round_ref(adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b,
+                    done_w, cf: bool, cb: bool):
+    """One phase-2 boolean round on the matmul backend (the ``class_round``
+    kernel): each active direction's ``class_push_ref`` (the forward
+    frontier over the reverse class stack, the backward over the forward
+    one), masked to the corridor and the unfinished columns, adds its new
+    bits; then ``subset_meet``.  ``done_w`` packs the finished columns into
+    words; returns ``(f_next, b_next, state)``, ``state`` int32
+    [2 + ceil(Q/32)]: forward added, backward added (0/1), then the done
+    words."""
+    done = bitset.unpack_bits(done_w, f.shape[1])
+    mask = cor_w & bitset.full_words_where(~done)[None, :]
+    new_f = (class_push_ref(adj_rev, f, allow, has, sh) & mask & ~f if cf
+             else torch.zeros_like(f))
+    new_b = (class_push_ref(adj_fwd, b, allow, has, sh) & mask & ~b if cb
+             else torch.zeros_like(b))
+    f, b = f | new_f, b | new_b
+    done = done | subset_meet(f, b, sup_need)
+    added = torch.stack([(new_f != 0).any(), (new_b != 0).any()])
+    return f, b, torch.cat([added.to(torch.int32), bitset.pack_bits(done)])

@@ -24,8 +24,10 @@ required-subset) expand from ``u`` while backward states expand from
 ``v``, both as ``[V', Q]`` packed subset bitfields; a query finishes when
 some vertex holds forward state s₁ and backward state s₂ with
 ``s₁ | s₂ == full_mask``.  One round is, on the ``matmul`` backend, one
-``bitset_matmul`` per label class per direction; on ``segment``, a gather,
-a per-edge subset transition and an OR over padded incidence rows.
+``class_round`` kernel launch (every label class's product in both
+directions, the subset transitions, the corridor mask and the meet); on
+``segment``, a gather, a per-edge subset transition and an OR over padded
+incidence rows.
 
 ``exact_mode="legacy"`` keeps the first phase-2 executor: one direction
 from ``u`` over the full graph until every target state is reached (on
@@ -65,7 +67,7 @@ from . import graph as graph_mod
 from . import pattern as pat
 from . import rpq as rpq_mod
 from . import dfs_baseline as dfs_mod
-from .kernels import ops
+from .kernels import ops, ref
 from .semiring import COUNT_CAP, DIST16, narrow, widen
 from .tdr_build import TDRIndex, _null_words
 from .utils import spans
@@ -162,6 +164,8 @@ class QueryStats:
     # host waited in them (the device's queued rounds finishing)
     host_syncs: int = 0
     sync_wait_s: float = 0.0
+    # phase-2 rounds that ran as one ``class_round`` kernel launch each
+    fused_rounds: int = 0
     _round_parts: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
@@ -408,14 +412,6 @@ def _corridor_mask(u, v, n_out, n_in, vtx_packed):
         _corridor_member(u, v, n_out, n_in, vtx_packed).T.contiguous())
 
 
-def _transition(val, has, sh):
-    """Apply subset transition ``s -> s | m`` to packed state bitfields:
-    ``has`` masks the states that already hold the edge's required label
-    (they stay), the rest shift up by ``sh = 2^i``.  ``has = ~0, sh = 0``
-    is the identity."""
-    return (val & has) | ((val & ~has) << sh)
-
-
 def _edge_state_masks(lab, req_labels, forb_raw_w, n_states: int,
                       max_m: int, neutral=None):
     """Per-(edge|class, query) transition operands ``(allow, has, sh)``,
@@ -449,16 +445,6 @@ def _sup_need(full_mask, n_states: int):
     rows = [sup[(full_mask & ((n_states - 1) & ~s1)).long()]
             for s1 in range(n_states)]
     return torch.stack(rows)
-
-
-def _meet(f, b, sup_need):
-    """done[q] = ∃ vertex x, states s1 ∈ f[x,q], s2 ∈ b[x,q] with
-    ``s1 | s2 == full_mask[q]`` (the bidirectional termination test)."""
-    done = torch.zeros(f.shape[1], dtype=torch.bool, device=f.device)
-    for s1 in range(sup_need.shape[0]):
-        hit = (((f >> s1) & 1) != 0) & ((b & sup_need[s1][None, :]) != 0)
-        done |= hit.any(dim=0)
-    return done
 
 
 def _bidi_loop(f0, b0, push_f, push_b, cor_w, meet, max_rounds: int):
@@ -530,41 +516,56 @@ def _bidi_segment_core(su, sv, req_labels, forb_raw_w, full_mask, cor_w,
     sup_need = _sup_need(full_mask, n_states)
 
     def push(frontier, gather_idx, ids, scatter_idx):
-        val = _transition(frontier[gather_idx] & allow, has, sh)  # [E', Q]
+        val = ref.subset_transition(frontier[gather_idx] & allow, has,
+                                    sh)                         # [E', Q]
         return _reduce_edges(val, scatter_idx, ids, v_p, chunk_words)
 
     return _bidi_loop(
         _seed(su, v_p, q_n), _seed(sv, v_p, q_n),
         lambda f: push(f, sub_src, ids_in, sub_dst),
         lambda b: push(b, sub_dst, ids_out, sub_src),
-        cor_w, lambda f, b: _meet(f, b, sup_need), max_rounds)
+        cor_w, lambda f, b: ref.subset_meet(f, b, sup_need), max_rounds)
 
 
 def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
                       forb_raw_w, full_mask, cor_w, n_states: int,
                       max_m: int, max_rounds: int):
-    """Matmul-backend bidirectional fixpoint: one ``bitset_matmul`` per
-    label class per direction per round on packed (sub-)adjacency
-    bit-matrices (the forward frontier uses the reverse matrices)."""
+    """Matmul-backend bidirectional fixpoint on packed (sub-)adjacency
+    class stacks (the forward frontier uses the reverse matrices).  Each
+    round is one ``ops.class_round``: every class's product in both
+    directions, its subset transition, the corridor mask and the meet, one
+    launch on a card.  The meet before the first round is the same call
+    with both directions off.  One host sync a call reads its flags and
+    done words; returns ``(done, rounds, syncs)``, ``done`` a numpy bool
+    [Q]."""
     q_n = su.shape[0]
     v_p = cor_w.shape[0]
     neutral = class_label < 0
     allow, has, sh = _edge_state_masks(class_label, req_labels, forb_raw_w,
                                        n_states, max_m, neutral=neutral)
     sup_need = _sup_need(full_mask, n_states)
+    syncs = spans.Syncs()
 
-    def push(frontier, adj_set):
-        upd = torch.zeros_like(frontier)
-        for c in range(adj_set.shape[0]):
-            y = engine_mod._matmul_rows(adj_set[c], frontier)[:v_p]
-            upd = upd | _transition(y & allow[c][None, :], has[c][None, :],
-                                    sh[c][None, :])
-        return upd
+    def read(state):
+        words = np.asarray(syncs.read(state), dtype=np.int32)
+        done = np.unpackbits(words[2:].view(np.uint8), bitorder="little")
+        return words[0] != 0, words[1] != 0, done[:q_n].astype(bool)
 
-    return _bidi_loop(
-        _seed(su, v_p, q_n), _seed(sv, v_p, q_n),
-        lambda f: push(f, adj_rev), lambda b: push(b, adj_fwd),
-        cor_w, lambda f, b: _meet(f, b, sup_need), max_rounds)
+    f, b = _seed(su, v_p, q_n), _seed(sv, v_p, q_n)
+    none_done = torch.zeros(bitset.n_words(q_n), dtype=torch.int32,
+                            device=su.device)
+    _, _, state = ops.class_round(adj_rev, adj_fwd, allow, has, sh, sup_need,
+                                  cor_w, f, b, none_done, False, False)
+    _, _, done = read(state)
+    cf = cb = True
+    rounds = 0
+    while (cf or cb) and not done.all() and rounds < max_rounds:
+        f, b, state = ops.class_round(adj_rev, adj_fwd, allow, has, sh,
+                                      sup_need, cor_w, f, b, state[2:], cf,
+                                      cb)
+        cf, cb, done = read(state)
+        rounds += 1
+    return done, rounds, syncs
 
 
 # -------------------------------------------- legacy one-directional executor
@@ -604,7 +605,7 @@ def _legacy_segment(u, v, req_labels, forb_raw_w, full_mask, cor_w, elab,
     v_n = cor_w.shape[0]
 
     def upd_of(f):
-        val = _transition(f[edge_src] & allow, has, sh)          # [E, Q]
+        val = ref.subset_transition(f[edge_src] & allow, has, sh)  # [E, Q]
         return bitset.segment_or_words(val, edge_dst, num_segments=v_n,
                                        chunk_words=chunk_words) & cor_w
 
@@ -626,8 +627,8 @@ def _legacy_matmul(u, v, class_adj, class_label, req_labels, forb_raw_w,
         upd = torch.zeros_like(f)
         for c in range(class_adj.shape[0]):
             y = engine_mod._matmul_rows(class_adj[c], f)[:v_n]
-            upd = upd | _transition(y & allow[c][None, :], has[c][None, :],
-                                    sh[c][None, :])
+            upd = upd | ref.subset_transition(
+                y & allow[c][None, :], has[c][None, :], sh[c][None, :])
         return upd & cor_w
 
     return _expand_loop(_seed(u, v_n, u.shape[0]), upd_of, v, full_mask,
@@ -655,6 +656,7 @@ class ChunkResult:
     v_total: int = 0        # |V| of the full graph
     compacted: bool = False  # ran on an induced subgraph
     syncs: spans.Syncs = dataclasses.field(default_factory=spans.Syncs)
+    fused_rounds: int = 0   # rounds run by the class_round kernel
 
 
 def _to_long(a: np.ndarray, device) -> torch.Tensor:
@@ -847,7 +849,8 @@ class ExactExecutor:
                 su, sv, *stacks, req_labels, forb_raw_w, full_mask, cor_w,
                 n_states, m_eff, max_rounds)
             return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
-                               compacted, syncs)
+                               compacted, syncs,
+                               rounds if su.is_cuda else 0)
 
         if compacted:
             e_real = s.shape[0]
@@ -1127,10 +1130,10 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                     mem_off[c0] = (off, off + n)
                     off += n
 
-        # per chunk: rounds, |V'|, |V|, compacted, host syncs (zeros for
-        # another rank's); the seconds waited in the syncs are this
-        # process's own
-        parts = np.zeros((len(starts), 5), dtype=np.int32)
+        # per chunk: rounds, |V'|, |V|, compacted, host syncs, fused
+        # rounds (zeros for another rank's); the seconds waited in the
+        # syncs are this process's own
+        parts = np.zeros((len(starts), 6), dtype=np.int32)
         for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
             if not runs[i]:
                 continue
@@ -1152,13 +1155,15 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]],
                              True)
             parts[i] = (res.rounds, res.n_active, res.v_total,
-                        res.compacted, res.syncs.n)
+                        res.compacted, res.syncs.n, res.fused_rounds)
             stats.sync_wait_s += res.syncs.wait_s
         if mesh is not None:
             answers, parts = _combine_ranks(answers, parts, owners, mesh)
-        for rounds, n_active, v_total, compacted, syncs in parts.tolist():
+        for rounds, n_active, v_total, compacted, syncs, fused in \
+                parts.tolist():
             stats._round_parts.append(rounds)
             stats.host_syncs += syncs
+            stats.fused_rounds += fused
             stats.corridor_active += n_active
             stats.corridor_total += v_total
             if compacted:
@@ -1850,9 +1855,9 @@ def _or_reduce0(x):
 
 
 def _rpq_sup_need(q_n: int, device="cpu"):
-    """``_meet``'s sup_need table specialized to the NFA meet: forward
-    state q completes with exactly backward state q -> int32 [32, Q]
-    (row 31 is the int32 with only bit 31 set)."""
+    """``ref.subset_meet``'s sup_need table specialized to the NFA meet:
+    forward state q completes with exactly backward state q -> int32
+    [32, Q] (row 31 is the int32 with only bit 31 set)."""
     bits = torch.tensor([_i32(1 << q) for q in range(32)],
                         dtype=torch.int32, device=device)
     return bits[:, None].expand(32, q_n)
@@ -1860,7 +1865,7 @@ def _rpq_sup_need(q_n: int, device="cpu"):
 
 def _rpq_meet(f, b):
     """done[q] = some vertex holds a forward state that is also a backward
-    state: ``_meet(f, b, _rpq_sup_need(Q))`` in one AND."""
+    state: ``ref.subset_meet(f, b, _rpq_sup_need(Q))`` in one AND."""
     return ((f & b) != 0).any(dim=0)
 
 

@@ -16,6 +16,8 @@ from repro_torch import (bitset, compressed, deltalog, dfs_baseline, engine,
 from repro_torch.kernels import ops, ref
 from repro_torch.semiring import COUNT, COUNT_CAP, DIST8, DIST16
 
+import _class_round_cases as rounds
+
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
 
 
@@ -195,33 +197,63 @@ def test_block_sparse_live_list_kernel(cuda, br, bw, w, frontier):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", list(rounds.CASES))
+def test_class_round_kernel_matches_plain(cuda, name):
+    """One phase-2 round through the ``class_round`` kernel equals its plain
+    version on the same card inputs: the new frontiers, both changed
+    flags and the done words, bit for bit."""
+    c, cf, cb, _ = rounds.round_case(name, cuda)
+    n0 = ops.KERNEL_LAUNCHES["class_round"]
+    got = ops.class_round(**c, cf=cf, cb=cb)
+    assert ops.KERNEL_LAUNCHES["class_round"] == n0 + 1
+    want = ref.class_round_ref(**c, cf=cf, cb=cb)
+    for g, w, what in zip(got, want, ("f_next", "b_next", "state")):
+        assert torch.equal(g, w), what
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["er", "pa"])
-def test_main_path_on_card_matches_segment_and_oracle(cuda, kind):
+@pytest.mark.parametrize("width", [2, 4])
+def test_main_path_on_card_matches_segment_and_oracle(cuda, kind, width):
     """Build + answer on the card with the default backend (matmul, all
-    three kernels) equals the plain-torch segment backend and the DFS
-    oracle."""
+    its kernels) equals the plain-torch segment backend and the DFS
+    oracle, and its phase 2 (one ``class_round`` launch a round) the
+    matmul backend on the CPU in answers, rounds and host syncs.  Patterns
+    of ``width`` labels run 4 (2 labels) and 16 (4) subset states."""
     g = G.random_graph(kind, 300, 3.0, 6, seed=1)
     cfg = tdr_build.TDRConfig(vtx_bits=64)
     ops.KERNEL_LAUNCHES.clear()
     idx = tdr_build.build_index(g, cfg)
     seg = tdr_build.build_index(g, cfg, backend="segment")
+    host = tdr_build.build_index(g, cfg, backend="matmul", device="cpu")
     for f in PLANES:
         assert torch.equal(getattr(idx, f), getattr(seg, f)), f
     assert idx.fixpoint_rounds == seg.fixpoint_rounds
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(1 if width == 2 else width)
     fams = (pattern.all_of, pattern.any_of, pattern.none_of)
     qs = [(int(rng.integers(300)), int(rng.integers(300)),
            fams[int(rng.integers(3))](
-               rng.choice(6, 2, replace=False).tolist()))
+               rng.choice(6, width, replace=False).tolist()))
           for _ in range(64)]
     want = [dfs_baseline.answer_pcr(g, u, v, p) for u, v, p in qs]
     for mode in ("auto", "compact", "full"):
-        got = tdr_query.answer_batch(idx, qs, exact_mode=mode)
+        st, st_h, st_s = (tdr_query.QueryStats() for _ in range(3))
+        got = tdr_query.answer_batch(idx, qs, exact_mode=mode, stats=st)
+        assert got.tolist() == want, mode
+        got = tdr_query.answer_batch(host, qs, exact_mode=mode,
+                                     backend="matmul", stats=st_h,
+                                     device="cpu")
         assert got.tolist() == want, mode
         got = tdr_query.answer_batch(seg, qs, exact_mode=mode,
-                                     backend="segment")
+                                     backend="segment", stats=st_s)
         assert got.tolist() == want, mode
-    for name in ("bitset_matmul", "way_filter", "block_sparse_matmul"):
+        assert st.exact_rounds > 0, mode
+        assert (st.exact_rounds, st.host_syncs) == (
+            st_h.exact_rounds, st_h.host_syncs), mode
+        assert st.fused_rounds == st.exact_rounds, mode
+        assert st_h.fused_rounds == st_s.fused_rounds == 0, mode
+    for name in ("bitset_matmul", "way_filter", "block_sparse_matmul",
+                 "class_round"):
         assert ops.KERNEL_LAUNCHES[name] > 0, name
 
 
@@ -979,8 +1011,8 @@ def card_mesh(cuda):
 def test_sharded_build_on_card_matches_single(card_mesh, budget):
     """In process, one gloo rank on the card: the sharded build equals the
     single-device card build, the closure at every row budget equals
-    ``r_vtx``, and sharded answers equal the meshless ones with B1 and B2
-    launched."""
+    ``r_vtx``, and sharded answers equal the meshless ones with
+    ``class_round`` and B2 launched."""
     from repro_torch import distributed
     g = G.random_graph("pa", 257, 2.5, 5, seed=2)
     cfg = tdr_build.TDRConfig(vtx_bits=64)
@@ -995,11 +1027,11 @@ def test_sharded_build_on_card_matches_single(card_mesh, budget):
     assert torch.equal(r, single.r_vtx)
     qs = _kind_queries(np.random.default_rng(3), 257, 5, 40)
     want = tdr_query.answer_batch(single, qs, exact_chunk=4)
-    n1, n2 = (ops.KERNEL_LAUNCHES[k] for k in ("bitset_matmul",
+    n1, n2 = (ops.KERNEL_LAUNCHES[k] for k in ("class_round",
                                                "way_filter"))
     ans = tdr_query.answer_batch(got, qs, exact_chunk=4, mesh=card_mesh)
     assert ans.tolist() == want.tolist()
-    assert ops.KERNEL_LAUNCHES["bitset_matmul"] > n1
+    assert ops.KERNEL_LAUNCHES["class_round"] > n1
     assert ops.KERNEL_LAUNCHES["way_filter"] > n2
 
 
@@ -1007,7 +1039,7 @@ def test_sharded_build_on_card_matches_single(card_mesh, budget):
 def test_two_gloo_ranks_on_card(cuda):
     """Two gloo ranks on cuda:0 (``tests/torch_multidevice_check.py
     --card 2``): the sharded build equals the single-device card build and
-    ``answer_batch(mesh=)`` launches B1 and B2."""
+    ``answer_batch(mesh=)`` launches ``class_round`` and B2."""
     import os
     import subprocess
     import sys

@@ -25,6 +25,7 @@ MODULES = ("repro_torch", "repro_torch.bitset", "repro_torch.compressed",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.bitset_matmul",
            "repro_torch.kernels.block_sparse",
+           "repro_torch.kernels.class_round",
            "repro_torch.kernels.lane_matmul", "repro_torch.kernels.ops",
            "repro_torch.kernels.pattern_filter",
            "repro_torch.kernels.popcount", "repro_torch.kernels.ref",

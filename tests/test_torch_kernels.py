@@ -10,7 +10,9 @@ import torch
 from repro.core import bitset as rbitset, compressed as rcomp
 from repro.kernels import block_sparse as rbs, ops as rops, ref as rref
 from repro_torch import bitset, compressed, graph as G
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+
+import _class_round_cases as rounds
 
 B1_SHAPES = [
     (8, 32, 1), (16, 64, 2), (50, 96, 3), (130, 256, 5), (1, 32, 1),
@@ -331,3 +333,76 @@ def test_block_sparse_lane_plain_matches_reference(op, shape):
         np.testing.assert_array_equal(got, np.asarray(
             rbs.block_sparse_lane_matmul(rc, jnp.asarray(x), op=op, cap=cap,
                                          interpret=True)))
+
+
+@pytest.mark.parametrize("name", rounds.SMALL)
+def test_class_round_plain_matches_direct_composition(name):
+    """``ops.class_round`` on the CPU (``ref.class_round_ref``) equals the
+    round written out: one ``bitset_matmul_ref`` per class and direction,
+    each class's subset transition (the neutral class's ``has = ~0, sh =
+    0`` too), the corridor and live-column mask, the new bits, and a meet
+    searched over every state pair against the queries' full masks."""
+    c, cf, cb, full_mask = rounds.round_case(name, "cpu")
+    f, b, cor = c["f"], c["b"], c["cor_w"]
+    v_p, q = f.shape
+    n_states = c["sup_need"].shape[0]
+    done = bitset.unpack_bits(c["done_w"], q)
+    mask = cor & torch.where(done, 0, -1).to(torch.int32)[None, :]
+
+    def push(adj, x):
+        xk = torch.cat([x, x.new_zeros((adj.shape[2] * 32 - v_p, q))])
+        upd = torch.zeros_like(x)
+        for k in range(adj.shape[0]):
+            t = ref.bitset_matmul_ref(adj[k], xk) & c["allow"][k]
+            h, sh = c["has"][k], c["sh"][k]
+            upd |= (t & h) | ((t & ~h) << sh)
+        return upd
+
+    new_f = push(c["adj_rev"], f) & mask & ~f if cf else torch.zeros_like(f)
+    new_b = push(c["adj_fwd"], b) & mask & ~b if cb else torch.zeros_like(b)
+    want_f, want_b = f | new_f, b | new_b
+    shifts = np.arange(n_states, dtype=np.uint32)
+    bf = (bitset.words_to_np(want_f)[..., None] >> shifts) & 1   # [V, Q, S]
+    bb = (bitset.words_to_np(want_b)[..., None] >> shifts) & 1
+    pairs = np.einsum("xqs,xqt->qst", bf.astype(np.int64),
+                      bb.astype(np.int64)) > 0
+    st = np.arange(n_states)
+    fills = ((st[:, None] | st[None, :])[None] & full_mask[:, None, None]) \
+        == full_mask[:, None, None]
+    want_done = done.numpy() | (pairs & fills).any(axis=(1, 2))
+
+    n0 = ops.KERNEL_LAUNCHES["class_round"]
+    got_f, got_b, state = ops.class_round(**c, cf=cf, cb=cb)
+    assert ops.KERNEL_LAUNCHES["class_round"] == n0   # counted on a card
+    assert torch.equal(got_f, want_f) and torch.equal(got_b, want_b)
+    words = bitset.words_to_np(state)
+    assert words[:2].tolist() == [int(bool((new_f != 0).any())),
+                                  int(bool((new_b != 0).any()))]
+    np.testing.assert_array_equal(words[2:], bitset.pack_bits_np(want_done))
+    assert 0 < int(want_done.sum()) < q or name in ("neutral-only",
+                                                    "meet-only")
+
+
+@pytest.mark.parametrize("bad", ["stacks", "frontier", "classes", "states",
+                                 "done", "narrow_rows"])
+def test_class_round_rejects_bad_operands(bad):
+    """The card wrapper's shape check refuses what the kernel cannot take."""
+    from repro_torch.kernels import class_round
+    c, _, _, _ = rounds.round_case("compact-96", "cpu")
+    if bad == "stacks":
+        c["adj_fwd"] = c["adj_fwd"][:-1]
+    elif bad == "frontier":
+        c["b"] = c["b"][:, :16]
+    elif bad == "classes":
+        c["sh"] = c["sh"][:-1]
+    elif bad == "states":
+        c["sup_need"] = torch.zeros((33, 32), dtype=torch.int32)
+    elif bad == "done":
+        c["done_w"] = torch.zeros(2, dtype=torch.int32)
+    else:
+        c["adj_rev"], c["adj_fwd"] = (a[:, :, :2].contiguous()
+                                      for a in (c["adj_rev"], c["adj_fwd"]))
+    with pytest.raises(ValueError):
+        class_round.check_round(**c)
+    c_ok, _, _, _ = rounds.round_case("compact-96", "cpu")
+    class_round.check_round(**c_ok)

@@ -25,6 +25,7 @@ from repro.core import (graph as RG, pattern as RP, rpq as RR,
                         tdr_build as RB, tdr_query as RQ)
 from repro_torch import (dfs_baseline, graph as G, pattern as pat, rpq,
                          tdr_build, tdr_query)
+from repro_torch.kernels.ref import subset_meet
 
 CFG = tdr_build.TDRConfig(vtx_bits=64, g_max=4, k=3)
 RCFG = RB.TDRConfig(vtx_bits=64, g_max=4, k=3)
@@ -438,7 +439,7 @@ def test_nfa_byte_lookup_equals_unroll(q_u):
 
 
 def test_nfa_meet_equals_sup_need_meet():
-    """The executors' one-AND meet equals the reference's ``_meet`` with
+    """The executors' one-AND meet equals ``subset_meet`` with
     ``_rpq_sup_need``'s table, bit 31 included."""
     rng = np.random.default_rng(3)
     f = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (50, 9),
@@ -448,7 +449,7 @@ def test_nfa_meet_equals_sup_need_meet():
     f[:, 0] = 0
     f[:, 1] = -2 ** 31
     b[:, 1] = -2 ** 31
-    want = tdr_query._meet(f, b, tdr_query._rpq_sup_need(9))
+    want = subset_meet(f, b, tdr_query._rpq_sup_need(9))
     assert torch.equal(tdr_query._rpq_meet(f, b), want)
     assert not want[0] and want[1]
 

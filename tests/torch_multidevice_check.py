@@ -40,8 +40,8 @@ ranks on one device) and no JAX is imported anywhere:
 Each rank asserts that the sharded build on the card equals the
 single-device card build, that ``answer_batch(mesh=...)`` equals the
 meshless answers (with equal ``QueryStats``) and the DFS oracle, and
-reports its kernel launches; the parent asserts that ``bitset_matmul``
-(B1) and ``way_filter`` (B2) ran on some rank.
+reports its kernel launches; the parent asserts that ``class_round`` (a
+phase-2 round) and ``way_filter`` (B2) ran on some rank.
 
 A rank that fails makes the parent kill the others and exit non-zero.
 """
@@ -348,7 +348,7 @@ def main(world: int, card: bool) -> int:
         for rep in reports:
             print(json.dumps(rep))
         if card:
-            for name in ("bitset_matmul", "way_filter"):
+            for name in ("class_round", "way_filter"):
                 if not sum(rep["launches"].get(name, 0) for rep in reports):
                     print(f"{name} was not launched on any rank",
                           file=sys.stderr)
