@@ -59,8 +59,12 @@ ENV_BACKEND = "REPRO_ENGINE_BACKEND"
 BACKENDS = ("segment", "matmul")
 CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
 
-# label-class stacks packed by ``Engine.label_class_adjacency`` (its LRU's
-# misses), across every engine of this process
+# label-class stacks packed across every engine of this process:
+# ``stacks``, the misses of ``Engine.label_class_adjacency``'s LRU;
+# ``bytes``, the device bytes of every stack packed, those misses' and
+# the compacted chunks' own (``tdr_query._class_stacks``); and
+# ``copied_bytes``, those of the cached stacks ``Engine.apply_delta``
+# copies on the device to patch
 LABEL_CLASS_PACKS: collections.Counter = collections.Counter()
 
 
@@ -454,6 +458,7 @@ class Engine:
                 self._drop_label_stacks(len(self._label_adj))
                 stack = bitset.np_to_words(packed, self.device)
             self._label_adj[key] = stack
+            LABEL_CLASS_PACKS["bytes"] += stack.numel() * stack.element_size()
         return self._label_adj[key]
 
     def _drop_label_stacks(self, n: int) -> None:
@@ -611,6 +616,8 @@ class Engine:
             rows = touched_rows(reverse)
             if rows.size:
                 stack = stack.clone()
+                LABEL_CLASS_PACKS["copied_bytes"] += \
+                    stack.numel() * stack.element_size()
                 stack[:, torch.from_numpy(rows).to(self.device)] = \
                     bitset.np_to_words(patched_row_bits(
                         reverse, rows, stack.shape[2], labels), self.device)
@@ -700,7 +707,7 @@ def jit_cache_entries() -> int:
     per shape).  The class stacks make the count move on the CPU too, on
     the matmul backend."""
     return (sum(_build.LIBRARY_EVENTS.values())
-            + sum(LABEL_CLASS_PACKS.values()))
+            + LABEL_CLASS_PACKS["stacks"])
 
 
 def make_engine(graph: Graph, backend: str | None = None,

@@ -56,7 +56,10 @@ label-class stack packed after warmup):
   with an empty ``pattern_rows`` cache).  Queries submitted after
   ``submit_update`` returns are therefore always answered — and cached —
   against the post-update graph; queries submitted before it see the
-  pre-update graph.  No batch ever straddles the swap.
+  pre-update graph.  No batch ever straddles the swap.  The maintenance,
+  the log append and the swap are the spans ``serve.update``,
+  ``serve.wal`` and ``serve.swap`` (``ServeStats.update_s``,
+  ``update_rebuilds``, ``swap_wait_s``).
 * **Durability.**  ``persist_to(dir)`` checkpoints the index
   (``repro_torch.snapshot``) and attaches a write-ahead delta log
   (``repro_torch.deltalog``), in the JAX package's byte format: updates append their effective delta —
@@ -109,6 +112,7 @@ from .. import pattern as pat
 from .. import rpq as rpq_mod
 from .. import snapshot as snapshot_mod
 from .. import tdr_build, tdr_query
+from ..semiring import COUNT_CAP
 from ..utils import spans
 
 LOG_NAME = "deltas.wal"
@@ -152,6 +156,10 @@ class ServeConfig:
     backend: str | None = None   # engine backend (None = contract default)
     exact_mode: str = "full"     # hard shape stability (module docstring)
     max_m: int = 4
+    # the saturation of "count" answers; count_routes refuses a graph
+    # whose padded edges times the cap reach 2**32, so a larger graph
+    # takes a lower cap
+    count_cap: int = COUNT_CAP
     pin_labels: bool = True      # pin the label-class set at warmup
     exact_chunk: int = 32
     # dirty-set fraction beyond which submit_update falls back to a full
@@ -197,6 +205,13 @@ class ServeStats:
     dequeued: int = 0
     queue_wait_s: float = 0.0
     batch_s: float = 0.0
+    # applied updates (``submit_update``, a follower's tail): the seconds
+    # of their index maintenance (the span ``serve.update``), how many of
+    # them fell back to a full rebuild, and the seconds their barriers
+    # waited from being queued to the swap
+    update_s: float = 0.0
+    update_rebuilds: int = 0
+    swap_wait_s: float = 0.0
     query_stats: "tdr_query.QueryStats" = dataclasses.field(
         default_factory=tdr_query.QueryStats)
 
@@ -235,14 +250,16 @@ class _UpdateBarrier:
     the result cache — the quiesce point of ``submit_update``.  ``lsn``
     is the write-ahead log position of the update (None when persistence
     is off); the scheduler refuses a swap that would move ``applied_lsn``
-    backwards."""
-    __slots__ = ("index", "lsn", "event", "exc")
+    backwards.  ``t_queued`` is when it was made, just before it is
+    queued."""
+    __slots__ = ("index", "lsn", "event", "exc", "t_queued")
 
     def __init__(self, index, lsn=None):
         self.index = index
         self.lsn = lsn
         self.event = threading.Event()
         self.exc: BaseException | None = None
+        self.t_queued = time.perf_counter()
 
 
 def _resolve(fut: Future, value=None, exc: BaseException | None = None):
@@ -514,22 +531,16 @@ class QueryServer:
                                                    edges_removed)
             lsn = None
             try:
-                new_idx = self._with_retries(
-                    lambda: tdr_build.update_index(
-                        self.index, delta, backend=cfg.backend,
-                        rebuild_threshold=(
-                            cfg.update_rebuild_threshold
-                            if rebuild_threshold is None
-                            else rebuild_threshold),
-                        stats=st, device=self.index.device))
+                new_idx = self._maintain(delta, rebuild_threshold, st)
                 if self._log is not None:
                     # write-ahead ordering: the delta is durable before
                     # any served state can change (a crash between here
                     # and the swap replays it on recovery — the acked-
                     # or-acked-plus-one invariant)
-                    lsn = self._with_retries(
-                        lambda: self._log.append(delta.added,
-                                                 delta.removed))
+                    with spans.span("serve.wal"):
+                        lsn = self._with_retries(
+                            lambda: self._log.append(delta.added,
+                                                     delta.removed))
             except Exception as exc:
                 with self._lock:
                     self.stats.degraded = True
@@ -607,6 +618,27 @@ class QueryServer:
                 self._note_applied(lsn)
             self._maybe_compact()
         return st
+
+    def _maintain(self, delta, rebuild_threshold: float | None,
+                  st: "tdr_build.UpdateStats"):
+        """The served index maintained through ``delta`` on its device
+        (``update_index`` under the retries), under the span
+        ``serve.update``, whose seconds go to ``stats.update_s``; a
+        rebuild counts in ``stats.update_rebuilds``.  Caller holds
+        ``_update_lock``."""
+        cfg = self.config
+        threshold = (cfg.update_rebuild_threshold
+                     if rebuild_threshold is None else rebuild_threshold)
+        with spans.span("serve.update") as sp:
+            new_idx = self._with_retries(
+                lambda: tdr_build.update_index(
+                    self.index, delta, backend=cfg.backend,
+                    rebuild_threshold=threshold, stats=st,
+                    device=self.index.device))
+        with self._lock:
+            self.stats.update_s += sp.seconds
+            self.stats.update_rebuilds += st.mode == "rebuild"
+        return new_idx
 
     def _with_retries(self, fn):
         """Run ``fn`` with ``ServeConfig.update_retries`` bounded retries
@@ -848,16 +880,11 @@ class QueryServer:
         barrier machinery of ``submit_update`` minus the write-ahead
         append (the record came *from* the log — it is already durable).
         False when the server is stopping underneath us."""
-        cfg = self.config
         with self._update_lock:
             if lsn <= self.stats.applied_lsn:
                 return True   # overlap after a snapshot re-bootstrap
             delta = self.index.graph.apply_updates(added, removed)
-            new_idx = self._with_retries(
-                lambda: tdr_build.update_index(
-                    self.index, delta, backend=cfg.backend,
-                    rebuild_threshold=cfg.update_rebuild_threshold,
-                    device=self.index.device))
+            new_idx = self._maintain(delta, None, tdr_build.UpdateStats())
             return self._swap_in(new_idx, lsn)
 
     def _refollow(self) -> None:
@@ -1023,7 +1050,7 @@ class QueryServer:
                 cu, cv, cp = q[0], q[1], q[2]
                 if len(pat.to_dnf(cp)) == 1:   # count: single-term only
                     tdr_query.count_routes(idx, cu, cv, cp, hops=1,
-                                           **common)
+                                           cap=cfg.count_cap, **common)
                     break
             # rpq: lowered regexes ride the answer_plan shapes warmed
             # above; the product executor runs at fixed shapes under
@@ -1053,12 +1080,13 @@ class QueryServer:
                 return
             if isinstance(batch, _UpdateBarrier):
                 # quiesce point: every pre-update batch has been served
-                # by this thread already — swap and invalidate.  The
-                # monotonic-LSN check is defense in depth: updates are
-                # serialized and barriers FIFO, so a regressing LSN here
-                # means a withdrawn barrier leaked back in — refuse the
-                # swap rather than serve a stale index as current.
-                with self._lock:
+                # by this thread already — swap and invalidate (the span
+                # ``serve.swap``).  The monotonic-LSN check is defense in
+                # depth: updates are serialized and barriers FIFO, so a
+                # regressing LSN here means a withdrawn barrier leaked
+                # back in — refuse the swap rather than serve a stale
+                # index as current.
+                with spans.span("serve.swap"), self._lock:
                     if batch.lsn is not None and \
                             batch.lsn <= self.stats.applied_lsn:
                         batch.exc = RuntimeError(
@@ -1068,6 +1096,8 @@ class QueryServer:
                     else:
                         self.index = batch.index
                         self._results.clear()
+                        self.stats.swap_wait_s += \
+                            time.perf_counter() - batch.t_queued
                         if batch.lsn is not None:
                             self.stats.applied_lsn = batch.lsn
                             self._applied_cond.notify_all()
@@ -1253,8 +1283,9 @@ class QueryServer:
                                                 **common)
             elif kd == "count":
                 with spans.span("serve.count"):
-                    out[kk] = tdr_query.count_routes(self.index, u, v, p,
-                                                     hops=hops, **common)
+                    out[kk] = tdr_query.count_routes(
+                        self.index, u, v, p, hops=hops,
+                        cap=cfg.count_cap, **common)
         return out
 
     def _kind_mode(self, kind: str = "other") -> str:

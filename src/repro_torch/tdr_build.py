@@ -23,6 +23,9 @@ The host precompute (DFS intervals, hash layout, label slots, way routing)
 is numpy, kept in step with the JAX package so both build the same planes.
 Each piece of a build is a span of ``utils/spans`` (``repro_torch.build.*``)
 and its seconds land in the index's ``build_stats`` (``BuildStats``).
+``update_index``'s pieces are spans too (``repro_torch.update.*``): the
+deletion scope, the carried engine's operands, the warm closures, the
+planes, or the rebuild that replaces them.
 """
 from __future__ import annotations
 
@@ -741,9 +744,10 @@ def update_index(index: TDRIndex, delta: "GraphDelta | None" = None, *,
 
     def rebuild():
         st.mode = "rebuild"
-        idx2 = build_index(g2, cfg, backend=backend,
-                           engine_config=engine_config, layout=index.disc,
-                           device=dev)
+        with spans.span("update.rebuild"):
+            idx2 = build_index(g2, cfg, backend=backend,
+                               engine_config=engine_config,
+                               layout=index.disc, device=dev)
         st.wall_s = time.perf_counter() - t0
         return idx2
 
@@ -751,15 +755,16 @@ def update_index(index: TDRIndex, delta: "GraphDelta | None" = None, *,
         return rebuild()
 
     # ---- deletion over-invalidation scope (host BFS, sound superset) ----
-    if st.n_removed:
-        rev_old = index.graph.reverse()
-        d_fwd = _bfs_mask(rev_old.indptr, rev_old.indices,
-                          delta.removed[:, 0], v_n)
-        d_rev = _bfs_mask(index.graph.indptr, index.graph.indices,
-                          delta.removed[:, 1], v_n)
-    else:
-        d_fwd = np.zeros(v_n, dtype=bool)
-        d_rev = d_fwd
+    with spans.span("update.scope"):
+        if st.n_removed:
+            rev_old = index.graph.reverse()
+            d_fwd = _bfs_mask(rev_old.indptr, rev_old.indices,
+                              delta.removed[:, 0], v_n)
+            d_rev = _bfs_mask(index.graph.indptr, index.graph.indices,
+                              delta.removed[:, 1], v_n)
+        else:
+            d_fwd = np.zeros(v_n, dtype=bool)
+            d_rev = d_fwd
     st.dirty_fwd = int(d_fwd.sum())
     st.dirty_rev = int(d_rev.sum())
     # inclusive compare: rebuild_threshold=0 always rebuilds, >=1 never
@@ -771,128 +776,133 @@ def update_index(index: TDRIndex, delta: "GraphDelta | None" = None, *,
     key = engine_mod.resolve_backend(
         backend or (engine_config.backend if engine_config else "auto"), dev)
     old_eng = index._engines.get(key)
-    if old_eng is not None and old_eng.graph is index.graph:
-        eng = old_eng.apply_delta(g2, delta.added, delta.removed,
-                                  device=dev)
-    else:
-        ecfg = engine_config or engine_mod.EngineConfig(
-            bit_chunk=cfg.bit_chunk)
-        eng = engine_mod.make_engine(g2, backend=key, config=ecfg,
-                                     device=dev)
-
-    push, pop, _ = dfs_intervals(g2)     # intervals track the new forest
-    g_count, way = way_assignment(cfg, g2, index.disc)  # frozen hashing
+    with spans.span("update.operands"):
+        if old_eng is not None and old_eng.graph is index.graph:
+            eng = old_eng.apply_delta(g2, delta.added, delta.removed,
+                                      device=dev)
+        else:
+            ecfg = engine_config or engine_mod.EngineConfig(
+                bit_chunk=cfg.bit_chunk)
+            eng = engine_mod.make_engine(g2, backend=key, config=ecfg,
+                                         device=dev)
     vtx_w = index.vtx_packed
     cw = eng.config.chunk_words
     src2 = g2.src
 
-    # ---- one-hop base planes: re-derive touched rows only ---------------
-    s_all = np.unique(np.concatenate([delta.added[:, 0],
-                                      delta.removed[:, 0]]))
-    t_all = np.unique(np.concatenate([delta.added[:, 1],
-                                      delta.removed[:, 1]]))
-    s_mask = np.zeros(v_n, dtype=bool)
-    s_mask[s_all] = True
-    keep_o = s_mask[src2]
-    so, do, lo_ = src2[keep_o], g2.indices[keep_o], g2.labels[keep_o]
-    t_mask = np.zeros(v_n, dtype=bool)
-    t_mask[t_all] = True
-    keep_i = t_mask[g2.indices]
-    si, di = src2[keep_i], g2.indices[keep_i]
-    base_v2, base_l2, base_r2 = _patch_bases(
-        index, vtx_w, _long(s_all, dev), _long(np.searchsorted(s_all, so),
-                                               dev),
-        _long(do, dev),
-        bitset.np_to_words(_edge_label_words(cfg, index.lab_slot, lo_), dev),
-        _long(t_all, dev), _long(np.searchsorted(t_all, di), dev),
-        _long(si, dev), chunk_words=cw)
+    with spans.span("update.closure"):
+        # ---- one-hop base planes: re-derive touched rows only -----------
+        s_all = np.unique(np.concatenate([delta.added[:, 0],
+                                          delta.removed[:, 0]]))
+        t_all = np.unique(np.concatenate([delta.added[:, 1],
+                                          delta.removed[:, 1]]))
+        s_mask = np.zeros(v_n, dtype=bool)
+        s_mask[s_all] = True
+        keep_o = s_mask[src2]
+        so, do, lo_ = src2[keep_o], g2.indices[keep_o], g2.labels[keep_o]
+        t_mask = np.zeros(v_n, dtype=bool)
+        t_mask[t_all] = True
+        keep_i = t_mask[g2.indices]
+        si, di = src2[keep_i], g2.indices[keep_i]
+        base_v2, base_l2, base_r2 = _patch_bases(
+            index, vtx_w, _long(s_all, dev),
+            _long(np.searchsorted(s_all, so), dev), _long(do, dev),
+            bitset.np_to_words(
+                _edge_label_words(cfg, index.lab_slot, lo_), dev),
+            _long(t_all, dev), _long(np.searchsorted(t_all, di), dev),
+            _long(si, dev), chunk_words=cw)
 
-    # ---- warm-start closures (fwd vtx+lab fused along the word axis) ----
-    wv = int(index.base_v.shape[-1])
-    max_iters = cfg.max_fixpoint_iters or v_n
-    dm = torch.from_numpy(d_fwd).to(dev)
-    old_f = torch.cat([index.r_vtx, index.r_lab], dim=1)
-    f0 = torch.cat(
-        [torch.where(dm[:, None], base_v2, index.r_vtx) | base_v2,
-         torch.where(dm[:, None], base_l2, index.r_lab) | base_l2], dim=1)
-    rf, rounds = eng.closure(f0, max_iters=max_iters)
-    r_vtx2, r_lab2 = rf[:, :wv].contiguous(), rf[:, wv:].contiguous()
-    rm = torch.from_numpy(d_rev).to(dev)
-    b0 = torch.where(rm[:, None], base_r2, index.r_in) | base_r2
-    r_in2, _ = eng.closure(b0, reverse=True, max_iters=max_iters)
-    st.rounds = int(rounds)
+        # ---- warm-start closures (fwd vtx+lab fused on the word axis) ---
+        wv = int(index.base_v.shape[-1])
+        max_iters = cfg.max_fixpoint_iters or v_n
+        dm = torch.from_numpy(d_fwd).to(dev)
+        old_f = torch.cat([index.r_vtx, index.r_lab], dim=1)
+        f0 = torch.cat(
+            [torch.where(dm[:, None], base_v2, index.r_vtx) | base_v2,
+             torch.where(dm[:, None], base_l2, index.r_lab) | base_l2],
+            dim=1)
+        rf, rounds = eng.closure(f0, max_iters=max_iters)
+        r_vtx2, r_lab2 = rf[:, :wv].contiguous(), rf[:, wv:].contiguous()
+        rm = torch.from_numpy(d_rev).to(dev)
+        b0 = torch.where(rm[:, None], base_r2, index.r_in) | base_r2
+        r_in2, _ = eng.closure(b0, reverse=True, max_iters=max_iters)
+        st.rounds = int(rounds)
 
-    # ---- exact changed-row scope for the plane patch --------------------
-    changed = (rf != old_f).any(dim=1).cpu().numpy()
-    st.changed_rows = int(changed.sum())
-    rev2 = g2.reverse()
+    with spans.span("update.planes"):
+        push, pop, _ = dfs_intervals(g2)   # intervals track the new forest
+        g_count, way = way_assignment(cfg, g2, index.disc)  # frozen hashing
 
-    def with_preds(mask):
-        ids = np.flatnonzero(mask)
-        out = mask.copy()
-        if ids.size:
-            out[rev2.indices[csr_row_edges(rev2.indptr, ids)]] = True
-        return out
+        # ---- exact changed-row scope for the plane patch ----------------
+        changed = (rf != old_f).any(dim=1).cpu().numpy()
+        st.changed_rows = int(changed.sum())
+        rev2 = g2.reverse()
 
-    ball = s_mask
-    for _ in range(1, cfg.k):
-        ball = with_preds(ball)
-    p_mask = s_mask | ball | with_preds(changed)
-    st.patch_rows = int(p_mask.sum())
+        def with_preds(mask):
+            ids = np.flatnonzero(mask)
+            out = mask.copy()
+            if ids.size:
+                out[rev2.indices[csr_row_edges(rev2.indptr, ids)]] = True
+            return out
 
-    if st.patch_rows > min(rebuild_threshold, 1.0) * v_n:
-        # patch scope too wide: reuse the warm closures, full tail
-        st.tail = "full"
-        lab_w_all = bitset.np_to_words(
-            _edge_label_words(cfg, index.lab_slot, g2.labels), dev)
-        idx2 = _assemble_planes(
-            g2, cfg, eng, vtx_w=vtx_w, lab_w=lab_w_all, base_v=base_v2,
-            base_l=base_l2, base_r=base_r2, r_vtx=r_vtx2, r_lab=r_lab2,
-            r_in=r_in2, g_count=g_count, way=way, push=push, pop=pop,
-            disc=index.disc, vtx_words_np=index.vtx_words,
-            lab_slot=index.lab_slot, rounds=int(rounds))
+        ball = s_mask
+        for _ in range(1, cfg.k):
+            ball = with_preds(ball)
+        p_mask = s_mask | ball | with_preds(changed)
+        st.patch_rows = int(p_mask.sum())
+
+        if st.patch_rows > min(rebuild_threshold, 1.0) * v_n:
+            # patch scope too wide: reuse the warm closures, full tail
+            st.tail = "full"
+            lab_w_all = bitset.np_to_words(
+                _edge_label_words(cfg, index.lab_slot, g2.labels), dev)
+            idx2 = _assemble_planes(
+                g2, cfg, eng, vtx_w=vtx_w, lab_w=lab_w_all, base_v=base_v2,
+                base_l=base_l2, base_r=base_r2, r_vtx=r_vtx2, r_lab=r_lab2,
+                r_in=r_in2, g_count=g_count, way=way, push=push, pop=pop,
+                disc=index.disc, vtx_words_np=index.vtx_words,
+                lab_slot=index.lab_slot, rounds=int(rounds))
+            idx2._engines[eng.backend] = eng
+            idx2._vtx_packed = vtx_w
+            st.wall_s = time.perf_counter() - t0
+            return idx2
+
+        # ---- row-granular plane patch -----------------------------------
+        st.tail = "patch"
+        rows = np.flatnonzero(p_mask)
+        eidx_p = np.flatnonzero(p_mask[src2])
+        sp, dp, lp = src2[eidx_p], g2.indices[eidx_p], g2.labels[eidx_p]
+        leaf2 = g2.out_degree() == 0
+        (d_vtx2, d_lab2, h_vtx2, h_lab2, v_vtx2, v_lab2, n_out2,
+         n_in2) = _patch_tail(
+            index, cfg, base_v2, base_l2, r_vtx2, r_lab2, r_in2, vtx_w,
+            bitset.np_to_words(_null_words(cfg), dev),
+            torch.from_numpy(leaf2).to(dev), _long(rows, dev),
+            torch.from_numpy(leaf2[rows]).to(dev),
+            torch.from_numpy(g_count[rows]).to(dev),
+            _long(np.searchsorted(rows, sp), dev), _long(dp, dev),
+            bitset.np_to_words(
+                _edge_label_words(cfg, index.lab_slot, lp), dev),
+            _long(way[eidx_p], dev), chunk_words=cw)
+        idx2 = TDRIndex(
+            cfg=cfg, graph=g2, h_vtx=h_vtx2, h_lab=h_lab2, v_vtx=v_vtx2,
+            v_lab=v_lab2, n_out=n_out2, n_in=n_in2,
+            push=torch.from_numpy(push).to(dev),
+            pop=torch.from_numpy(pop).to(dev),
+            g_count=torch.from_numpy(g_count).to(dev),
+            vtx_words=index.vtx_words, lab_slot=index.lab_slot,
+            fixpoint_rounds=int(rounds), disc=index.disc,
+            base_v=base_v2, base_l=base_l2, base_r=base_r2,
+            r_vtx=r_vtx2, r_lab=r_lab2, r_in=r_in2,
+            d_vtx=d_vtx2, d_lab=d_lab2)
         idx2._engines[eng.backend] = eng
         idx2._vtx_packed = vtx_w
+        if index._comp:
+            chg_fwd = np.flatnonzero(changed)
+            chg_rev = np.flatnonzero(
+                (r_in2 != index.r_in).any(dim=1).cpu().numpy())
+            idx2._comp = _carry_compressed(
+                index._comp, idx2,
+                {"h_vtx": rows, "h_lab": rows, "v_vtx": rows, "v_lab": rows,
+                 "n_out": rows, "n_in": chg_rev, "r_vtx": chg_fwd,
+                 "r_lab": chg_fwd, "r_in": chg_rev})
         st.wall_s = time.perf_counter() - t0
         return idx2
-
-    # ---- row-granular plane patch ---------------------------------------
-    st.tail = "patch"
-    rows = np.flatnonzero(p_mask)
-    eidx_p = np.flatnonzero(p_mask[src2])
-    sp, dp, lp = src2[eidx_p], g2.indices[eidx_p], g2.labels[eidx_p]
-    leaf2 = g2.out_degree() == 0
-    (d_vtx2, d_lab2, h_vtx2, h_lab2, v_vtx2, v_lab2, n_out2,
-     n_in2) = _patch_tail(
-        index, cfg, base_v2, base_l2, r_vtx2, r_lab2, r_in2, vtx_w,
-        bitset.np_to_words(_null_words(cfg), dev),
-        torch.from_numpy(leaf2).to(dev), _long(rows, dev),
-        torch.from_numpy(leaf2[rows]).to(dev),
-        torch.from_numpy(g_count[rows]).to(dev),
-        _long(np.searchsorted(rows, sp), dev), _long(dp, dev),
-        bitset.np_to_words(_edge_label_words(cfg, index.lab_slot, lp), dev),
-        _long(way[eidx_p], dev), chunk_words=cw)
-    idx2 = TDRIndex(
-        cfg=cfg, graph=g2, h_vtx=h_vtx2, h_lab=h_lab2, v_vtx=v_vtx2,
-        v_lab=v_lab2, n_out=n_out2, n_in=n_in2,
-        push=torch.from_numpy(push).to(dev),
-        pop=torch.from_numpy(pop).to(dev),
-        g_count=torch.from_numpy(g_count).to(dev),
-        vtx_words=index.vtx_words, lab_slot=index.lab_slot,
-        fixpoint_rounds=int(rounds), disc=index.disc,
-        base_v=base_v2, base_l=base_l2, base_r=base_r2,
-        r_vtx=r_vtx2, r_lab=r_lab2, r_in=r_in2,
-        d_vtx=d_vtx2, d_lab=d_lab2)
-    idx2._engines[eng.backend] = eng
-    idx2._vtx_packed = vtx_w
-    if index._comp:
-        chg_fwd = np.flatnonzero(changed)
-        chg_rev = np.flatnonzero(
-            (r_in2 != index.r_in).any(dim=1).cpu().numpy())
-        idx2._comp = _carry_compressed(
-            index._comp, idx2,
-            {"h_vtx": rows, "h_lab": rows, "v_vtx": rows, "v_lab": rows,
-             "n_out": rows, "n_in": chg_rev, "r_vtx": chg_fwd,
-             "r_lab": chg_fwd, "r_in": chg_rev})
-    st.wall_s = time.perf_counter() - t0
-    return idx2

@@ -670,9 +670,10 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
     (label -1), as ``[C+1, V', Kw]`` stacks from the engine's LRU for the
     full graph (``edges`` None), else packed on the host from a compacted
     chunk's ``(src, dst, lab)`` (padding rows repeat a real edge, which
-    sets the same bit twice).  None when the stacks do not fit the dense
-    cap on the CPU (the caller runs its segment core); on a card
-    ``Engine.dense_fits`` raises instead."""
+    sets the same bit twice).  Either pack adds its device bytes to
+    ``engine.LABEL_CLASS_PACKS["bytes"]`` (an LRU hit adds none).  None
+    when the stacks do not fit the dense cap on the CPU (the caller runs
+    its segment core); on a card ``Engine.dense_fits`` raises instead."""
     n_mats = 2 * (len(special) + 1)
     with spans.span("query.class_stacks"):
         if not eng.dense_fits(
@@ -686,6 +687,8 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
             adj = [bitset.np_to_words(engine_mod.pack_label_class_edges_np(
                 *edges, v_p, special, reverse=rev), eng.device)
                 for rev in (True, False)]
+            engine_mod.LABEL_CLASS_PACKS["bytes"] += sum(
+                a.numel() * a.element_size() for a in adj)
         return (*adj, _to_long(np.asarray(special + (-1,)), eng.device))
 
 
