@@ -25,12 +25,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    fewest live k-blocks (recorded by a spy on ``ops.frontier_step_sparse``
    during the main path's build), each also against dense
    ``bitset_matmul`` on the same adjacency; ``class_round`` on the
-   operands of one mid-chunk round of the main path's ``answer_batch``
-   (4 subset states) and of ``answer_plan`` with ``pin_m=4`` on the same
-   queries (16 states), each recorded by a spy on ``ops.class_round``,
-   also against the eager round it replaced (one ``bitset_matmul`` per
-   label class and direction and the round's torch ops), whose device
-   and wall times are printed beside it.  Times are medians of CUDA
+   operands (each direction's edge lists) of one mid-chunk round of the
+   main path's ``answer_batch`` (4 subset states) and of ``answer_plan``
+   with ``pin_m=4`` on the same queries (16 states), each recorded by a
+   spy on ``ops.class_round``, also against the dense composition it
+   replaced on the per-label stacks of the same edges (one
+   ``bitset_matmul`` per label and direction and the round's torch ops),
+   whose device and wall times are printed beside
+   it.  Times are medians of CUDA
    event timings after a warm-up.
 3. Cross-checks: the same graph built and answered with
    ``backend="segment"`` (plain torch, no kernels) gives identical planes,
@@ -2614,12 +2616,14 @@ def class_round_capture(ops, run):
     return out, calls["args"], calls["n"]
 
 
-def eager_class_round(torch, engine, ref, bitset, args, done):
+def eager_class_round(torch, engine, ref, bitset, args, done, stacks):
     """The round as the loop ran it before ``class_round``: one
-    ``bitset_matmul`` launch per label class and direction, the subset
-    transitions, the mask, the new bits and the meet in torch ops, and the
-    stack of the loop's three flags; ``done`` is the unpacked ``done_w``."""
-    adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b, _, cf, cb = args
+    ``bitset_matmul`` launch per label class and direction on the dense
+    class ``stacks`` of the round's edges, the subset transitions, the
+    mask, the new bits and the meet in torch ops, and the stack of the
+    loop's three flags; ``done`` is the unpacked ``done_w``."""
+    _, _, allow, has, sh, sup_need, cor_w, f, b, _, cf, cb = args
+    adj_rev, adj_fwd = stacks
 
     def push(adj, x):
         upd = torch.zeros_like(x)
@@ -2639,49 +2643,66 @@ def eager_class_round(torch, engine, ref, bitset, args, done):
         [(new_f != 0).any(), (new_b != 0).any(), done.all()])
 
 
+def label_stacks(bitset, lists):
+    """The dense stack ``[L, V', ceil(V'/32)]`` of an ``EdgeLists``, one
+    class a label (packed on the host), on the lists' device."""
+    row_ptr, cols, labels = (t.cpu().numpy().astype(np.int64)
+                             for t in lists[:3])
+    v_p = row_ptr.shape[0] - 1
+    rows = np.repeat(np.arange(v_p), np.diff(row_ptr))
+    out = np.zeros((lists.n_labels, v_p, bitset.n_words(v_p)), np.uint32)
+    bitset.set_bits_np(out, (labels, rows), cols)
+    return bitset.np_to_words(out, lists.row_ptr.device)
+
+
 def class_round_row(torch, engine, ops, ref, bitset, record, args,
                     n_launches=None) -> bool:
-    """``class_round`` on one captured round's operands against
-    ``ref.class_round_ref`` (tolerance 0 in ``f_next``, ``b_next`` and the
-    state words) and against the eager round it replaced (``f_next``,
-    ``b_next``), with its row of the ``kernels`` line; then the kernel's
-    profiled time and the eager round's device time (profiler), wall time
-    between CUDA events with no sleep ahead (its launches included) and
-    device kernels a round."""
-    adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b, done_w = \
+    """``class_round`` on one captured round's operands (each direction's
+    edge lists) against ``ref.class_round_ref`` on them (tolerance 0 in
+    ``f_next``, ``b_next`` and the state words) and against the eager
+    dense round it replaced on the per-label stacks of the same edges
+    (``f_next``, ``b_next`` and the two changed flags), with its row of
+    the ``kernels`` line; then the kernel's profiled time and the eager
+    round's device time (profiler), wall time between CUDA events with no
+    sleep ahead (its launches included) and device kernels a round."""
+    lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f, b, done_w = \
         args[:10]
-    c1, v_p, kw = adj_rev.shape
-    q, n_states = f.shape[1], sup_need.shape[0]
+    v_p, q = f.shape
+    n_states = sup_need.shape[0]
     name = f"class_round[S={n_states}]"
     done = bitset.unpack_bits(done_w, q)
+    stacks = tuple(label_stacks(bitset, lists)
+                   for lists in (lists_rev, lists_fwd))
     got = ops.class_round(*args)
     want = ref.class_round_ref(*args)
-    eager = eager_class_round(torch, engine, ref, bitset, args, done)
+    eager = eager_class_round(torch, engine, ref, bitset, args, done, stacks)
     err = max([words_err(torch, g, w) for g, w in zip(got, want)]
-              + [words_err(torch, g, w) for g, w in zip(got[:2], eager[:2])])
+              + [words_err(torch, g, w) for g, w in zip(got[:2], eager[:2])]
+              + [words_err(torch, got[2][:2] != 0, eager[2][:2])])
+    n_edges = [int(lists.cols.numel()) for lists in (lists_rev, lists_fwd)]
     set_bits = sum(int(bitset.popcount(a.reshape(-1, 1)).sum())
-                   for stack in (adj_rev, adj_fwd) for a in stack)
-    print(f"{name}: stacks {tuple(adj_rev.shape)} x 2 ({set_bits} set "
-          f"bits), Q = {q}, {n_states} states; frontier rows "
+                   for stack in stacks for a in stack)
+    print(f"{name}: lists {n_edges} entries over {v_p} rows ({set_bits} set "
+          f"bits in the dense stacks {tuple(stacks[0].shape)} x 2), Q = {q}, "
+          f"{n_states} states; frontier rows "
           f"{int((f != 0).any(dim=1).sum())} forward, "
           f"{int((b != 0).any(dim=1).sum())} backward")
-    # bytes: both dense class stacks once, f, b and the corridor in,
-    # f_next and b_next out; operations: a test of every stack word, an
-    # OR per set bit and query column, and the transition's six per
-    # class, row and column in each direction
+    # bytes: both directions' lists once (row pointers, columns, labels), f,
+    # b and the corridor in, f_next and b_next out; operations: an AND,
+    # the transition's five and an OR per entry and query column
     good = record(
         name, "src/repro_torch/kernels/csrc/class_round.cu",
         "none: src/repro/core/tdr_query.py:630 (_bidi_matmul_core)",
         got[0], want[0], lambda: ops.class_round(*args),
         lambda: ref.class_round_ref(*args),
-        2 * adj_rev.numel() * 4 + 5 * v_p * q * 4,
-        2 * adj_rev.numel() + set_bits * q + 2 * 6 * c1 * v_p * q,
-        n_launches=n_launches, err=err)
+        lists_rev.nbytes + lists_fwd.nbytes + 5 * v_p * q * 4,
+        7 * sum(n_edges) * q, n_launches=n_launches, err=err)
     profiled_kernels(torch, name, lambda: ops.class_round(*args))
     wall = time_ms(torch, lambda: eager_class_round(
-        torch, engine, ref, bitset, args, done), PLAIN_REPS, queued=False)
+        torch, engine, ref, bitset, args, done, stacks), PLAIN_REPS,
+        queued=False)
     _, busy, top, n_k = profile(torch, lambda: [
-        eager_class_round(torch, engine, ref, bitset, args, done)
+        eager_class_round(torch, engine, ref, bitset, args, done, stacks)
         for _ in range(PLAIN_REPS)])
     print(f"{name} eager round it replaced: device "
           f"{1e3 * busy / PLAIN_REPS:.4f} ms, wall {wall:.4f} ms between "

@@ -13,10 +13,15 @@ package's, so states, slots and pool compare equal across the two.  It
 also carries the live lists the CUDA kernel walks in place of the state
 grid: per row-block offsets into the MIXED list (whose position is the
 pool slot) and into a list of the ONE blocks' word-blocks.
+
+``EdgeLists`` is the boolean phase-2 round's operand (the ``class_round``
+kernel): one direction's labelled edges as per-row lists of columns and
+raw labels.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -343,3 +348,46 @@ def _row_offsets(bi: torch.Tensor, mb: int) -> torch.Tensor:
     off = torch.zeros(mb + 1, dtype=torch.int32, device=bi.device)
     off[1:] = torch.cumsum(torch.bincount(bi.long(), minlength=mb), 0)
     return off
+
+
+# ------------------------------------------------------------ edge lists
+class EdgeLists(NamedTuple):
+    """One direction's labelled edges as per-row lists: row ``i``'s edges
+    are ``row_ptr[i]:row_ptr[i + 1]`` of ``cols`` and ``labels``, each the
+    column ``j`` of one edge of row ``i`` and its raw label, below
+    ``n_labels``.  An edge may repeat: OR is idempotent.  Only
+    ``edge_lists`` makes them, and it checks every row, column and
+    label."""
+    row_ptr: torch.Tensor    # int32 [V'+1]
+    cols: torch.Tensor       # int32 [E]
+    labels: torch.Tensor     # int32 [E]
+    n_labels: int
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the row pointers, columns and labels."""
+        return 4 * (int(self.row_ptr.numel()) + 2 * int(self.cols.numel()))
+
+
+def edge_lists(rows: np.ndarray, cols: np.ndarray, labels: np.ndarray,
+               n_rows: int, n_labels: int, device) -> EdgeLists:
+    """``EdgeLists`` of the edges ``rows[e] -> cols[e]`` labelled
+    ``labels[e]`` (rows and columns below ``n_rows``).  Rows already
+    grouped (a CSR's) keep their edge order."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    labels = np.asarray(labels, dtype=np.int64)
+    if rows.shape[0] >= 1 << 31:
+        raise ValueError(f"{rows.shape[0]} edges overflow int32 offsets")
+    for name, a, top in (("row", rows, n_rows), ("column", cols, n_rows),
+                         ("label", labels, n_labels)):
+        if a.size and not (0 <= a.min() and a.max() < top):
+            raise ValueError(f"a {name} lies outside [0, {top})")
+    if rows.size and (np.diff(rows) < 0).any():
+        order = np.argsort(rows, kind="stable")
+        rows, cols, labels = rows[order], cols[order], labels[order]
+    row_ptr = np.zeros(n_rows + 1, dtype=np.int64)
+    row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=n_rows))
+    dev = resolve_device(device)
+    return EdgeLists(*(torch.from_numpy(a.astype(np.int32)).to(dev)
+                       for a in (row_ptr, cols, labels)), int(n_labels))

@@ -49,7 +49,8 @@ import torch.distributed as dist
 
 from . import bitset
 from .bitset import resolve_device  # noqa: F401  (re-exported)
-from .compressed import BlockCompressed, compress_blocks, patch_blocks
+from .compressed import (BlockCompressed, EdgeLists, compress_blocks,
+                         edge_lists, patch_blocks)
 from .graph import Graph, csr_row_edges
 from .kernels import _build, ops
 from .semiring import BOOLEAN, Semiring
@@ -59,12 +60,13 @@ ENV_BACKEND = "REPRO_ENGINE_BACKEND"
 BACKENDS = ("segment", "matmul")
 CPU_DENSE_BYTES = 1 << 28   # the JAX package's max_dense_bytes default
 
-# label-class stacks packed across every engine of this process:
+# label-class operands made across every engine of this process:
 # ``stacks``, the misses of ``Engine.label_class_adjacency``'s LRU;
 # ``bytes``, the device bytes of every stack packed, those misses' and
-# the compacted chunks' own (``tdr_query._class_stacks``); and
+# the compacted chunks' own (``tdr_query._class_stacks``);
 # ``copied_bytes``, those of the cached stacks ``Engine.apply_delta``
-# copies on the device to patch
+# copies on the device to patch; ``lists`` and ``list_bytes``, the first
+# two for the edge lists (``Engine.edge_lists``, ``tdr_query._edge_lists``)
 LABEL_CLASS_PACKS: collections.Counter = collections.Counter()
 
 
@@ -358,6 +360,7 @@ class Engine:
         # reader on another thread never sees it missing
         self._label_adj: collections.OrderedDict[tuple, torch.Tensor] = \
             collections.OrderedDict()
+        self._edge_lists: dict[bool, EdgeLists] = {}
         self._rev_graph: Graph | None = None
         self.edge_src = torch.from_numpy(graph.src.astype(np.int64)).to(
             self.device)
@@ -460,6 +463,19 @@ class Engine:
             self._label_adj[key] = stack
             LABEL_CLASS_PACKS["bytes"] += stack.numel() * stack.element_size()
         return self._label_adj[key]
+
+    def edge_lists(self, *, reverse: bool = True) -> EdgeLists:
+        """Cached per-row edge lists with raw labels (``EdgeLists``): row
+        i of ``reverse=True`` lists the edges j→i, of ``reverse=False``
+        the edges i→j, the edges of every ``label_class_adjacency``
+        stack in that direction."""
+        if reverse not in self._edge_lists:
+            lists = _lists_of_csr(self._gather_csr(not reverse),
+                                  self.device)
+            LABEL_CLASS_PACKS["lists"] += 1
+            LABEL_CLASS_PACKS["list_bytes"] += lists.nbytes
+            self._edge_lists[reverse] = lists
+        return self._edge_lists[reverse]
 
     def _drop_label_stacks(self, n: int) -> None:
         """Evict the ``n`` least recently used class stacks.  On a card
@@ -565,14 +581,23 @@ class Engine:
         a new tensor on the device.  Cached label-class stacks are patched
         the same way, class by class, so a server's pinned stacks survive
         an update without a repack.  Cached block operands go through
-        ``compressed.patch_blocks``, live lists included.  This engine and
-        its operands are left as they were."""
+        ``compressed.patch_blocks``, live lists included.  Cached edge
+        lists are rebuilt from the new CSRs the patches read, with no miss
+        counted, and the new engine keeps the reverse CSR.  This engine
+        and its operands are left as they were."""
         _check_same_device(self.device, device)
         if graph.n_vertices != self.graph.n_vertices:
             raise ValueError("apply_delta requires a fixed vertex set")
         new = copy.copy(self)   # device, config and resolved backend
         new._attach(graph)
         csrs = {False: graph}
+
+        def csr(reverse: bool) -> Graph:
+            """The new graph's CSR grouped by the rows of a ``reverse``
+            operand, each built once."""
+            if reverse not in csrs:
+                csrs[reverse] = graph.reverse()
+            return csrs[reverse]
 
         def touched_rows(reverse: bool) -> np.ndarray:
             col = 1 if reverse else 0
@@ -583,9 +608,7 @@ class Engine:
                              labels: tuple | None = None) -> np.ndarray:
             """New bits of ``rows`` [R, kw], or per label class
             [C+1, R, kw] (the last class every other label)."""
-            if reverse not in csrs:
-                csrs[reverse] = graph.reverse()
-            g = csrs[reverse]
+            g = csr(reverse)
             counts = (g.indptr[rows + 1] - g.indptr[rows]).astype(np.int64)
             pos = np.repeat(np.arange(rows.shape[0]), counts)
             eidx = csr_row_edges(g.indptr, rows)
@@ -622,6 +645,9 @@ class Engine:
                     bitset.np_to_words(patched_row_bits(
                         reverse, rows, stack.shape[2], labels), self.device)
             new._label_adj[(labels, reverse)] = stack
+        for reverse in list(self._edge_lists):
+            new._edge_lists[reverse] = _lists_of_csr(csr(reverse),
+                                                     self.device)
         for reverse, comp in self._bcomp.items():
             rows = touched_rows(reverse)
             if rows.size == 0:
@@ -629,6 +655,7 @@ class Engine:
                 continue
             new._bcomp[reverse] = patch_blocks(
                 comp, rows, patched_row_bits(reverse, rows, comp.shape[1]))
+        new._rev_graph = csrs.get(True)
         return new
 
     def _gather_csr(self, reverse: bool) -> Graph:
@@ -681,6 +708,13 @@ class Engine:
         return r, rounds
 
 
+def _lists_of_csr(g: Graph, device) -> EdgeLists:
+    """``EdgeLists`` of a CSR's rows (the ``engine.lists`` span)."""
+    with spans.span("engine.lists"):
+        return edge_lists(g.src, g.indices, g.labels, g.n_vertices,
+                          g.n_labels, device)
+
+
 def _check_same_device(have: torch.device, device) -> None:
     """Raise unless ``device`` (resolved; the card raises without one) is
     ``have``.  A device without an index stands for the current card, or
@@ -699,15 +733,16 @@ def _check_same_device(have: torch.device, device) -> None:
 def jit_cache_entries() -> int:
     """What the port has materialised for a new shape or content: kernel
     library builds and loads (``kernels/_build.library``) plus label-class
-    stacks packed on a miss of ``Engine.label_class_adjacency``'s LRU.
+    stacks packed on a miss of ``Engine.label_class_adjacency``'s LRU and
+    the edge lists ``Engine.edge_lists`` builds.
 
     The counterpart of the JAX package's count of compiled variants.  The
     serving layer reads its delta over a window: zero means steady traffic
     built, loaded and packed nothing new (torch itself compiles nothing
-    per shape).  The class stacks make the count move on the CPU too, on
-    the matmul backend."""
+    per shape).  The class operands make the count move on the CPU too,
+    on the matmul backend."""
     return (sum(_build.LIBRARY_EVENTS.values())
-            + LABEL_CLASS_PACKS["stacks"])
+            + LABEL_CLASS_PACKS["stacks"] + LABEL_CLASS_PACKS["lists"])
 
 
 def make_engine(graph: Graph, backend: str | None = None,

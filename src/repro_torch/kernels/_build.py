@@ -48,7 +48,7 @@ _ARGTYPES = {
     "tdr_lane_matmul": [_P, _P, _P] + [_I] * 5 + [_U, _P],
     "tdr_block_sparse_lane_matmul": [_P] * 8 + [_I] * 13 + [_U, _P],
     "tdr_popcount_rows": [_P, _P, _I, _I, _I, _P],
-    "tdr_class_round": [_P] * 13 + [_I] * 8 + [_P],
+    "tdr_class_round": [_P] * 17 + [_I] * 5 + [_P],
 }
 
 

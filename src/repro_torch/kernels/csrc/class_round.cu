@@ -1,53 +1,62 @@
 // One phase-2 round of the boolean bidirectional subset-state expansion
 // on the matmul backend, in one launch (sm_90a):
 //
-//     y_c[i, q]    = OR_j ( A_c[i, j] AND X[j, q] )      every label class c
-//     upd[i, q]    = OR_c T_c,q( y_c[i, q] & allow[c, q] )
+//     upd[i, q]    = OR over the edges (i, j, l) of row i:
+//                      T_l,q( X[j, q] & allow[l, q] )
 //     new[i, q]    = upd[i, q] & cor[i, q] & live[q] & ~X[i, q]
 //     X_next       = X | new
 //
-// for the forward frontier (X = f, A = the reverse class stack) and the
-// backward one (X = b, A = the forward stack), then the meet
+// for the forward frontier (X = f, the edges j->i) and the backward one
+// (X = b, the edges i->j), then the meet
 //
 //     done'[q] = done[q] | EXISTS i, s1 in f_next[i, q]:
 //                          b_next[i, q] & sup_need[s1, q] != 0
 //
-// and two flags, whether each direction added a bit.  T_c,q is the subset
-// transition of class c for query q: states that hold the class's required
-// label stay, the rest move up by sh = 2^i ((y & has) | ((y & ~has) << sh));
-// the neutral class has has = ~0, sh = 0.  live[q] is "query q not done";
-// a direction whose last round added nothing is copied and reads no A.
+// and two flags, whether each direction added a bit.  T_l,q is the subset
+// transition of label l for query q: states that hold the label's
+// required bit stay, the rest move up by sh = 2^i
+// ((y & has) | ((y & ~has) << sh)); a label no query of the chunk names
+// has allow = ~0, has = ~0, sh = 0.  The transition and the allow mask
+// distribute over OR, so each edge contributes T_l(X[j] & allow[l]) on
+// its own: the dense form's per-class product y_c = OR_j A_c[i, j] & X[j]
+// needs no sort by label here.  live[q] is "query q not done"; a
+// direction whose last round added nothing is copied and reads no list.
+//
+// Operand: each direction's edges as per-row lists
+// (repro_torch.compressed.EdgeLists): row_ptr int32 [V'+1], and the
+// column and the raw label of each edge, int32 [E] each; allow, has and
+// sh are [L, Q], one row a label.  An edge may repeat (OR is
+// idempotent).
 //
 // Replaces: no TPU kernel.  The JAX package runs the round inside one XLA
 // while-loop body (src/repro/core/tdr_query.py::_bidi_loop with
 // _bidi_matmul_core's push): a scan of the bitset_matmul Pallas kernel over
-// the classes plus XLA's elementwise ops.  Eagerly that was 2 (C+1) launches
-// of the product and some 300-400 elementwise launches a round, bound by
-// the host; here it is one launch and the host reads the flags and the
-// done words once.
+// dense class stacks [C+1, V', Kw].  This kernel first read those stacks
+// too (4.56 GB a round at V' = 32768 and 17 classes, >99.9% zero words).
 //
-// Bound on this card: reading the class stacks.  Each is a dense packed
-// bit-matrix [C+1, V', Kw] whose words are >99.9% zero; at V' = 32768 and
-// 17 classes the two stacks are 4.56 GB a round (1.36 ms at 3.35 TB/s),
-// against 8 MiB of frontiers, corridor and outputs.
+// Bound on this card: the bytes the round needs: both directions' lists
+// (at V' = 32768, ~131,071 edges a direction: 2.4 MB), f, b and the
+// corridor in, f_next and b_next out (4 MB each at Q = 32), ~23 MB a
+// round, 0.007 ms at 3.35 TB/s.  The frontier rows an edge gathers come
+// from L2 (a 4 MB frontier fits its 50 MB), so the time is the latency
+// of a few dependent reads a warp, hidden by the warps in flight.
 //
 // Design: one warp per (row i, 32-column pass of Q): lane = query column.
-// For each active direction and class the warp streams row i of A_c in
-// coalesced loads (16 bytes a lane when Kw is a multiple of 4, else 4),
-// four in flight; a ballot finds the non-zero words, a shuffle broadcasts
-// each, and its set bits pick the frontier rows that the lanes OR in, as
-// bitset_matmul.cu does.  The class's transition runs in registers on the
-// lane's word; allow/has/sh and sup_need are read through the read-only
-// cache (every warp of a pass reads the same 32 words).  A warp whose row
-// has no live, unreached corridor bit in a direction skips that
-// direction's stream: its new bits are 0 whatever A holds.  The meet runs
-// on the new words in registers; ballots give the pass's done bits and the
-// two changed flags, which one lane ORs into `state` with an atomic.  Each
+// For each active direction the warp reads up to 32 of the row's entries
+// (columns and labels) in two coalesced loads, broadcasts each by
+// shuffle, and every lane gathers its word of the edge's frontier row (a
+// 128-byte line for the warp), kUnroll gathers in flight; the label's
+// allow/has/sh come through the read-only cache (every warp of a pass
+// reads the same L x 3 lines, which stay in L1).  A warp whose row has
+// no live, unreached corridor bit in a direction skips that direction's
+// list: its new bits are 0 whatever the row holds.  The meet runs on the
+// new words in registers; ballots give the pass's done bits and the two
+// changed flags, which one lane ORs into `state` with an atomic.  Each
 // round reads only the last round's buffers and writes fresh ones, so no
 // warp sees another's update and rounds are bit-identical to the eager
-// composition.  `state` ([2 + passes] words: changed_f, changed_b, then the
-// done words) must be zero at launch.  The kernel allocates nothing and
-// runs on the caller's stream.
+// composition.  `state` ([2 + passes] words:
+// changed_f, changed_b, then the done words) must be zero at launch.  The
+// kernel allocates nothing and runs on the caller's stream.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,107 +66,56 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-// OR of the frontier rows picked by the set bits of one packed word.
-__device__ __forceinline__ uint32_t or_rows(
-    uint32_t bits, long long k0, const uint32_t* __restrict__ x, int v_p,
-    int q, int col, bool has_col) {
-  uint32_t acc = 0u;
-  while (bits) {
-    const int b = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const long long j = k0 + b;
-    if (has_col && j < v_p) acc |= __ldg(x + j * q + col);
-  }
-  return acc;
-}
-
-// y[i, col] = OR_j A[i, j] & X[j, col] for one row of one class: the row
-// streamed once by the whole warp.
-template <bool kVec>
-__device__ __forceinline__ uint32_t row_product(
-    const uint32_t* __restrict__ arow, int kw,
-    const uint32_t* __restrict__ x, int v_p, int q, int col, bool has_col,
-    int lane) {
-  uint32_t acc = 0u;
-  if (kVec) {
-    const uint4* arow4 = reinterpret_cast<const uint4*>(arow);
-    const int kw4 = kw >> 2;
-    for (int base = 0; base < kw4; base += 32 * kUnroll) {
-      uint4 words[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int c4 = base + u * 32 + lane;
-        words[u] = c4 < kw4 ? __ldg(arow4 + c4) : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const uint4 w = words[u];
-        unsigned live = __ballot_sync(kFull, (w.x | w.y | w.z | w.w) != 0u);
-        while (live) {
-          const int src = __ffs(live) - 1;
-          live &= live - 1;
-          const uint32_t w0 = __shfl_sync(kFull, w.x, src);
-          const uint32_t w1 = __shfl_sync(kFull, w.y, src);
-          const uint32_t w2 = __shfl_sync(kFull, w.z, src);
-          const uint32_t w3 = __shfl_sync(kFull, w.w, src);
-          const long long k0 = (long long)(base + u * 32 + src) * 128;
-          acc |= or_rows(w0, k0, x, v_p, q, col, has_col);
-          acc |= or_rows(w1, k0 + 32, x, v_p, q, col, has_col);
-          acc |= or_rows(w2, k0 + 64, x, v_p, q, col, has_col);
-          acc |= or_rows(w3, k0 + 96, x, v_p, q, col, has_col);
-        }
-      }
-    }
-  } else {
-    for (int base = 0; base < kw; base += 32 * kUnroll) {
-      uint32_t words[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int c = base + u * 32 + lane;
-        words[u] = c < kw ? __ldg(arow + c) : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        unsigned live = __ballot_sync(kFull, words[u] != 0u);
-        while (live) {
-          const int src = __ffs(live) - 1;
-          live &= live - 1;
-          const uint32_t bits = __shfl_sync(kFull, words[u], src);
-          const long long k0 = (long long)(base + u * 32 + src) * 32;
-          acc |= or_rows(bits, k0, x, v_p, q, col, has_col);
-        }
-      }
-    }
-  }
-  return acc;
-}
-
-// OR over the classes of each class's transition of its product.
-template <bool kVec>
-__device__ __forceinline__ uint32_t class_push(
-    const uint32_t* __restrict__ adj, const uint32_t* __restrict__ x,
+// OR over row i's edges (j, l) of T_l(X[j, col] & allow[l, col]); lanes
+// past Q (has_col false) return 0.
+__device__ __forceinline__ uint32_t list_push(
+    const int* __restrict__ row_ptr, const int* __restrict__ cols,
+    const int* __restrict__ labs, const uint32_t* __restrict__ x,
     const uint32_t* __restrict__ allow, const uint32_t* __restrict__ has,
-    const uint32_t* __restrict__ sh, int row, int v_p, int kw, int q,
-    int c1, int col, bool has_col, int lane) {
+    const uint32_t* __restrict__ sh, int row, int q, int col, bool has_col,
+    int lane) {
+  const int beg = __ldg(row_ptr + row);
+  const int end = __ldg(row_ptr + row + 1);
   uint32_t upd = 0u;
-  for (int c = 0; c < c1; ++c) {
-    const uint32_t* arow = adj + ((long long)c * v_p + row) * kw;
-    const uint32_t y =
-        row_product<kVec>(arow, kw, x, v_p, q, col, has_col, lane);
-    if (has_col) {
-      const long long e = (long long)c * q + col;
-      const uint32_t t = y & __ldg(allow + e);
-      const uint32_t h = __ldg(has + e);
-      upd |= (t & h) | ((t & ~h) << __ldg(sh + e));
+  for (int base = beg; base < end; base += 32) {
+    const int n = min(32, end - base);   // warp-uniform
+    const int my_col = lane < n ? __ldg(cols + base + lane) : 0;
+    const int my_lab = lane < n ? __ldg(labs + base + lane) : 0;
+    for (int k = 0; k < n; k += kUnroll) {
+      int j[kUnroll], l[kUnroll];
+      uint32_t xv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        j[u] = __shfl_sync(kFull, my_col, (k + u) & 31);
+        l[u] = __shfl_sync(kFull, my_lab, (k + u) & 31);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        xv[u] = (has_col && k + u < n)
+                    ? __ldg(x + (long long)j[u] * q + col)
+                    : 0u;
+      // a missing edge gathers 0, and T_l(0) = 0 for every label
+      if (has_col) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long ce = (long long)l[u] * q + col;
+          const uint32_t t = xv[u] & __ldg(allow + ce);
+          const uint32_t h = __ldg(has + ce);
+          upd |= (t & h) | ((t & ~h) << __ldg(sh + ce));
+        }
+      }
     }
   }
   return upd;
 }
 
-template <bool kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-class_round_kernel(const uint32_t* __restrict__ adj_rev,
-                   const uint32_t* __restrict__ adj_fwd,
+class_round_kernel(const int* __restrict__ ptr_rev,
+                   const int* __restrict__ col_rev,
+                   const int* __restrict__ lab_rev,
+                   const int* __restrict__ ptr_fwd,
+                   const int* __restrict__ col_fwd,
+                   const int* __restrict__ lab_fwd,
                    const uint32_t* __restrict__ f,
                    const uint32_t* __restrict__ b,
                    const uint32_t* __restrict__ allow,
@@ -169,7 +127,7 @@ class_round_kernel(const uint32_t* __restrict__ adj_rev,
                    uint32_t* __restrict__ f_next,
                    uint32_t* __restrict__ b_next,
                    uint32_t* __restrict__ state,
-                   int v_p, int kw, int q, int c1, int s, int cf, int cb) {
+                   int v_p, int q, int s, int cf, int cb) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= v_p) return;  // warp-uniform: the ballots below stay full-warp
@@ -185,11 +143,11 @@ class_round_kernel(const uint32_t* __restrict__ adj_rev,
 
   uint32_t new_f = 0u, new_b = 0u;
   if (cf && __any_sync(kFull, (mask & ~fv) != 0u))
-    new_f = class_push<kVec>(adj_rev, f, allow, has, sh, row, v_p, kw, q, c1,
-                             col, has_col, lane) & mask & ~fv;
+    new_f = list_push(ptr_rev, col_rev, lab_rev, f, allow, has, sh, row, q,
+                      col, has_col, lane) & mask & ~fv;
   if (cb && __any_sync(kFull, (mask & ~bv) != 0u))
-    new_b = class_push<kVec>(adj_fwd, b, allow, has, sh, row, v_p, kw, q, c1,
-                             col, has_col, lane) & mask & ~bv;
+    new_b = list_push(ptr_fwd, col_fwd, lab_fwd, b, allow, has, sh, row, q,
+                      col, has_col, lane) & mask & ~bv;
   fv |= new_f;
   bv |= new_b;
   if (has_col) {
@@ -224,24 +182,28 @@ class_round_kernel(const uint32_t* __restrict__ adj_rev,
 
 }  // namespace
 
-extern "C" int tdr_class_round(const void* adj_rev, const void* adj_fwd,
+extern "C" int tdr_class_round(const void* ptr_rev, const void* col_rev,
+                               const void* lab_rev, const void* ptr_fwd,
+                               const void* col_fwd, const void* lab_fwd,
                                const void* f, const void* b,
                                const void* allow, const void* has,
                                const void* sh, const void* sup_need,
                                const void* cor, const void* done_prev,
                                void* f_next, void* b_next, void* state,
-                               int v_p, int kw, int q, int c1, int s, int cf,
-                               int cb, int vec, void* stream) {
+                               int v_p, int q, int s, int cf, int cb,
+                               void* stream) {
   if (v_p > 0 && q > 0) {
     const dim3 grid((v_p + kWarpsPerBlock - 1) / kWarpsPerBlock,
                     (q + 31) / 32);
-    auto kernel = vec ? class_round_kernel<true> : class_round_kernel<false>;
-    kernel<<<grid, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)adj_rev, (const uint32_t*)adj_fwd,
-        (const uint32_t*)f, (const uint32_t*)b, (const uint32_t*)allow,
-        (const uint32_t*)has, (const uint32_t*)sh, (const uint32_t*)sup_need,
-        (const uint32_t*)cor, (const uint32_t*)done_prev, (uint32_t*)f_next,
-        (uint32_t*)b_next, (uint32_t*)state, v_p, kw, q, c1, s, cf, cb);
+    class_round_kernel<<<grid, 32 * kWarpsPerBlock, 0,
+                         (cudaStream_t)stream>>>(
+        (const int*)ptr_rev, (const int*)col_rev, (const int*)lab_rev,
+        (const int*)ptr_fwd, (const int*)col_fwd, (const int*)lab_fwd,
+        (const uint32_t*)f, (const uint32_t*)b,
+        (const uint32_t*)allow, (const uint32_t*)has, (const uint32_t*)sh,
+        (const uint32_t*)sup_need, (const uint32_t*)cor,
+        (const uint32_t*)done_prev, (uint32_t*)f_next, (uint32_t*)b_next,
+        (uint32_t*)state, v_p, q, s, cf, cb);
   }
   return (int)cudaGetLastError();
 }

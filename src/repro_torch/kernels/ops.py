@@ -30,17 +30,17 @@ def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return ref.bitset_matmul_ref(a_packed, x)
 
 
-def class_round(adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b,
-                done_w, cf: bool, cb: bool):
+def class_round(lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f,
+                b, done_w, cf: bool, cb: bool):
     """One phase-2 boolean round of the bidirectional subset expansion on
-    label-class stacks -> ``(f_next, b_next, state)``; ``state`` is int32
-    ``[forward added, backward added, done words...]`` (see
-    ``ref.class_round_ref``)."""
+    each direction's per-row edge lists (``compressed.EdgeLists``)
+    -> ``(f_next, b_next, state)``; ``state`` is int32 ``[forward added,
+    backward added, done words...]`` (see ``ref.class_round_ref``)."""
     if f.is_cuda:
-        return cuda_class_round(adj_rev, adj_fwd, allow, has, sh, sup_need,
-                                cor_w, f, b, done_w, cf, cb)
-    return ref.class_round_ref(adj_rev, adj_fwd, allow, has, sh, sup_need,
-                               cor_w, f, b, done_w, cf, cb)
+        return cuda_class_round(lists_rev, lists_fwd, allow, has, sh,
+                                sup_need, cor_w, f, b, done_w, cf, cb)
+    return ref.class_round_ref(lists_rev, lists_fwd, allow, has, sh,
+                               sup_need, cor_w, f, b, done_w, cf, cb)
 
 
 def frontier_step_mxu(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -307,22 +307,38 @@ def class_push_ref(adj, x, allow, has, sh):
     return upd
 
 
-def class_round_ref(adj_rev, adj_fwd, allow, has, sh, sup_need, cor_w, f, b,
-                    done_w, cf: bool, cb: bool):
+def edge_push_ref(lists, x, allow, has, sh):
+    """``class_push_ref`` on per-row edge lists (``compressed.EdgeLists``)
+    with the transition operands ``[L, Q]`` of every label: gather each
+    edge's frontier row ``x[j]``, apply its label's transition to
+    ``x[j] & allow[l]``, and OR the edge rows into their row with a
+    packed segment-OR -> [V', Q]."""
+    row_ptr, cols, labels, _ = lists
+    rows = torch.repeat_interleave(
+        torch.arange(row_ptr.shape[0] - 1, device=row_ptr.device),
+        (row_ptr[1:] - row_ptr[:-1]).long())
+    lab = labels.long()
+    val = subset_transition(x[cols.long()] & allow[lab], has[lab], sh[lab])
+    return bitset.segment_or_words(val, rows, num_segments=x.shape[0])
+
+
+def class_round_ref(lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w,
+                    f, b, done_w, cf: bool, cb: bool):
     """One phase-2 boolean round on the matmul backend (the ``class_round``
-    kernel): each active direction's ``class_push_ref`` (the forward
-    frontier over the reverse class stack, the backward over the forward
-    one), masked to the corridor and the unfinished columns, adds its new
-    bits; then ``subset_meet``.  ``done_w`` packs the finished columns into
-    words; returns ``(f_next, b_next, state)``, ``state`` int32
-    [2 + ceil(Q/32)]: forward added, backward added (0/1), then the done
-    words."""
+    kernel): each active direction's ``edge_push_ref`` (the forward
+    frontier over the lists of edges into each row, the backward over
+    those out of it), masked to the corridor and the unfinished columns,
+    adds its new bits; then ``subset_meet``.  ``done_w`` packs the
+    finished columns into words; returns ``(f_next, b_next, state)``,
+    ``state`` int32 [2 + ceil(Q/32)]: forward added, backward added (0/1),
+    then the done words."""
+    def push(lists, x):
+        return edge_push_ref(lists, x, allow, has, sh)
+
     done = bitset.unpack_bits(done_w, f.shape[1])
     mask = cor_w & bitset.full_words_where(~done)[None, :]
-    new_f = (class_push_ref(adj_rev, f, allow, has, sh) & mask & ~f if cf
-             else torch.zeros_like(f))
-    new_b = (class_push_ref(adj_fwd, b, allow, has, sh) & mask & ~b if cb
-             else torch.zeros_like(b))
+    new_f = push(lists_rev, f) & mask & ~f if cf else torch.zeros_like(f)
+    new_b = push(lists_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
     f, b = f | new_f, b | new_b
     done = done | subset_meet(f, b, sup_need)
     added = torch.stack([(new_f != 0).any(), (new_b != 0).any()])

@@ -993,8 +993,8 @@ class QueryServer:
 
         Returns how far ``engine.jit_cache_entries`` moved: the kernel
         library loaded (and built, on its first use) and the pinned
-        label-class stacks packed (a second warmup with the same sample
-        returns 0)."""
+        label-class stacks and edge lists packed (a second warmup with
+        the same sample returns 0)."""
         cfg = self.config
         idx = self.index
         n0 = engine_mod.jit_cache_entries()

@@ -24,10 +24,10 @@ required-subset) expand from ``u`` while backward states expand from
 ``v``, both as ``[V', Q]`` packed subset bitfields; a query finishes when
 some vertex holds forward state s₁ and backward state s₂ with
 ``s₁ | s₂ == full_mask``.  One round is, on the ``matmul`` backend, one
-``class_round`` kernel launch (every label class's product in both
-directions, the subset transitions, the corridor mask and the meet); on
-``segment``, a gather, a per-edge subset transition and an OR over padded
-incidence rows.
+``class_round`` kernel launch over each direction's per-row edge lists
+(every edge's subset transition in both directions, the corridor mask
+and the meet); on ``segment``, a gather, a per-edge subset
+transition and an OR over padded incidence rows.
 
 ``exact_mode="legacy"`` keeps the first phase-2 executor: one direction
 from ``u`` over the full graph until every target state is reached (on
@@ -67,6 +67,7 @@ from . import graph as graph_mod
 from . import pattern as pat
 from . import rpq as rpq_mod
 from . import dfs_baseline as dfs_mod
+from .compressed import edge_lists
 from .kernels import ops, ref
 from .semiring import COUNT_CAP, DIST16, narrow, widen
 from .tdr_build import TDRIndex, _null_words
@@ -166,6 +167,9 @@ class QueryStats:
     sync_wait_s: float = 0.0
     # phase-2 rounds that ran as one ``class_round`` kernel launch each
     fused_rounds: int = 0
+    # bytes of edge lists (row pointers, columns and labels) the
+    # ``class_round`` launches were given, per active direction
+    operand_bytes: int = 0
     _round_parts: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
@@ -527,22 +531,24 @@ def _bidi_segment_core(su, sv, req_labels, forb_raw_w, full_mask, cor_w,
         cor_w, lambda f, b: ref.subset_meet(f, b, sup_need), max_rounds)
 
 
-def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
+def _bidi_matmul_core(su, sv, lists_rev, lists_fwd, req_labels,
                       forb_raw_w, full_mask, cor_w, n_states: int,
                       max_m: int, max_rounds: int):
-    """Matmul-backend bidirectional fixpoint on packed (sub-)adjacency
-    class stacks (the forward frontier uses the reverse matrices).  Each
-    round is one ``ops.class_round``: every class's product in both
-    directions, its subset transition, the corridor mask and the meet, one
-    launch on a card.  The meet before the first round is the same call
-    with both directions off.  One host sync a call reads its flags and
-    done words; returns ``(done, rounds, syncs)``, ``done`` a numpy bool
-    [Q]."""
+    """Matmul-backend bidirectional fixpoint on the (sub)graph's per-row
+    edge lists (the forward frontier reads the edges into each row), with
+    the transition operands ``[L, Q]`` of every label.  Each round is one
+    ``ops.class_round``: every edge's subset transition in both
+    directions, the corridor mask and the meet, one launch on a card.
+    The meet before the first round is the same call with both
+    directions off.  One host sync a call reads its flags and done words;
+    returns ``(done, rounds, syncs, operand_bytes)``, ``done`` a numpy
+    bool [Q], ``operand_bytes`` the lists' bytes each round was given in
+    its active directions."""
     q_n = su.shape[0]
     v_p = cor_w.shape[0]
-    neutral = class_label < 0
-    allow, has, sh = _edge_state_masks(class_label, req_labels, forb_raw_w,
-                                       n_states, max_m, neutral=neutral)
+    allow, has, sh = _edge_state_masks(
+        torch.arange(lists_rev.n_labels, device=su.device), req_labels,
+        forb_raw_w, n_states, max_m)
     sup_need = _sup_need(full_mask, n_states)
     syncs = spans.Syncs()
 
@@ -554,18 +560,20 @@ def _bidi_matmul_core(su, sv, adj_rev, adj_fwd, class_label, req_labels,
     f, b = _seed(su, v_p, q_n), _seed(sv, v_p, q_n)
     none_done = torch.zeros(bitset.n_words(q_n), dtype=torch.int32,
                             device=su.device)
-    _, _, state = ops.class_round(adj_rev, adj_fwd, allow, has, sh, sup_need,
-                                  cor_w, f, b, none_done, False, False)
+    _, _, state = ops.class_round(lists_rev, lists_fwd, allow, has, sh,
+                                  sup_need, cor_w, f, b, none_done, False,
+                                  False)
     _, _, done = read(state)
     cf = cb = True
-    rounds = 0
+    rounds = nbytes = 0
     while (cf or cb) and not done.all() and rounds < max_rounds:
-        f, b, state = ops.class_round(adj_rev, adj_fwd, allow, has, sh,
+        f, b, state = ops.class_round(lists_rev, lists_fwd, allow, has, sh,
                                       sup_need, cor_w, f, b, state[2:], cf,
                                       cb)
+        nbytes += cf * lists_rev.nbytes + cb * lists_fwd.nbytes
         cf, cb, done = read(state)
         rounds += 1
-    return done, rounds, syncs
+    return done, rounds, syncs, nbytes
 
 
 # -------------------------------------------- legacy one-directional executor
@@ -657,10 +665,46 @@ class ChunkResult:
     compacted: bool = False  # ran on an induced subgraph
     syncs: spans.Syncs = dataclasses.field(default_factory=spans.Syncs)
     fused_rounds: int = 0   # rounds run by the class_round kernel
+    operand_bytes: int = 0  # class lists those rounds were given
 
 
 def _to_long(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+
+
+def _class_stacks_fit(eng: "engine_mod.Engine", special: tuple[int, ...],
+                      v_p: int) -> bool:
+    """``Engine.dense_fits`` for a chunk's two class stacks ``[C+1, V',
+    Kw]``: the test that sends a chunk to the matmul core."""
+    n_mats = 2 * (len(special) + 1)
+    return eng.dense_fits(
+        n_mats * v_p * bitset.n_words(v_p) * 4,
+        f"this chunk's {n_mats} label-class adjacency matrices")
+
+
+def _edge_lists(eng: "engine_mod.Engine", special: tuple[int, ...],
+                v_p: int, edges=None):
+    """A boolean matmul chunk's operands ``(lists_rev, lists_fwd)``: the
+    edges of ``_class_stacks``'s stacks as per-row ``EdgeLists``, the
+    engine's own for the full graph (``edges`` None), else built on the
+    host from a compacted chunk's ``(src, dst, lab)``, whose bytes count
+    in ``engine.LABEL_CLASS_PACKS["list_bytes"]``.  The chunk takes the
+    matmul core where its dense stacks would fit: None when they do not
+    fit the dense cap on the CPU (the caller runs its segment core); on a
+    card ``Engine.dense_fits`` raises instead, as for the stacks."""
+    with spans.span("query.class_stacks"):
+        if not _class_stacks_fit(eng, special, v_p):
+            return None
+        if edges is None:
+            return tuple(eng.edge_lists(reverse=rev) for rev in (True, False))
+        src, dst, lab = edges
+        n_labels = eng.graph.n_labels
+        lists = tuple(edge_lists(dst if rev else src, src if rev else dst,
+                                 lab, v_p, n_labels, eng.device)
+                      for rev in (True, False))
+        engine_mod.LABEL_CLASS_PACKS["list_bytes"] += sum(
+            a.nbytes for a in lists)
+        return lists
 
 
 def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
@@ -674,11 +718,8 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
     ``engine.LABEL_CLASS_PACKS["bytes"]`` (an LRU hit adds none).  None
     when the stacks do not fit the dense cap on the CPU (the caller runs
     its segment core); on a card ``Engine.dense_fits`` raises instead."""
-    n_mats = 2 * (len(special) + 1)
     with spans.span("query.class_stacks"):
-        if not eng.dense_fits(
-                n_mats * v_p * bitset.n_words(v_p) * 4,
-                f"this chunk's {n_mats} label-class adjacency matrices"):
+        if not _class_stacks_fit(eng, special, v_p):
             return None
         if edges is None:
             adj = [eng.label_class_adjacency(special, reverse=rev)
@@ -843,17 +884,17 @@ class ExactExecutor:
                                    idx.vtx_packed)
         max_rounds = v_p * n_states + 1
 
-        stacks = None
+        lists = None
         if eng.backend == "matmul":
-            stacks = _class_stacks(eng, special, v_p,
-                                   (s, d, l) if compacted else None)
-        if stacks is not None:
-            reached, rounds, syncs = _bidi_matmul_core(
-                su, sv, *stacks, req_labels, forb_raw_w, full_mask, cor_w,
+            lists = _edge_lists(eng, special, v_p,
+                                (s, d, l) if compacted else None)
+        if lists is not None:
+            reached, rounds, syncs, nbytes = _bidi_matmul_core(
+                su, sv, *lists, req_labels, forb_raw_w, full_mask, cor_w,
                 n_states, m_eff, max_rounds)
             return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
                                compacted, syncs,
-                               rounds if su.is_cuda else 0)
+                               rounds if su.is_cuda else 0, nbytes)
 
         if compacted:
             e_real = s.shape[0]
@@ -1134,9 +1175,10 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
                     off += n
 
         # per chunk: rounds, |V'|, |V|, compacted, host syncs, fused
-        # rounds (zeros for another rank's); the seconds waited in the
-        # syncs are this process's own
-        parts = np.zeros((len(starts), 6), dtype=np.int32)
+        # rounds, operand bytes as their low 31 bits and the rest (int32
+        # words, as every payload that crosses ranks; zeros for another
+        # rank's); the seconds waited in the syncs are this process's own
+        parts = np.zeros((len(starts), 8), dtype=np.int32)
         for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
             if not runs[i]:
                 continue
@@ -1158,15 +1200,17 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]],
                              True)
             parts[i] = (res.rounds, res.n_active, res.v_total,
-                        res.compacted, res.syncs.n, res.fused_rounds)
+                        res.compacted, res.syncs.n, res.fused_rounds,
+                        res.operand_bytes & _LOW31, res.operand_bytes >> 31)
             stats.sync_wait_s += res.syncs.wait_s
         if mesh is not None:
             answers, parts = _combine_ranks(answers, parts, owners, mesh)
-        for rounds, n_active, v_total, compacted, syncs, fused in \
+        for rounds, n_active, v_total, compacted, syncs, fused, lo, hi in \
                 parts.tolist():
             stats._round_parts.append(rounds)
             stats.host_syncs += syncs
             stats.fused_rounds += fused
+            stats.operand_bytes += lo + (hi << 31)
             stats.corridor_active += n_active
             stats.corridor_total += v_total
             if compacted:
@@ -1174,6 +1218,9 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             else:
                 stats.full_chunks += 1
     return answers
+
+
+_LOW31 = (1 << 31) - 1
 
 
 def _chunk_owners(compact_flags, size: int) -> list[int]:

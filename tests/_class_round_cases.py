@@ -1,47 +1,80 @@
 """Inputs of one phase-2 boolean class round (``ops.class_round``) for the
-kernel's tests, on the CPU and on the card: label-class stacks packed from
-a random labelled graph (four edges a vertex, 16 labels), the transition
-operands of random required and forbidden labels, and frontiers, corridor
-and done words drawn at random.  Imports no JAX."""
+kernel's tests, on the CPU and on the card: a random labelled graph (four
+edges a vertex, 16 labels) as each direction's per-row edge lists with
+the transition operands of every label, the dense label-class stacks
+packed from the same edges with the operands of every class (the
+yardstick, ``dense_round``), for random required and forbidden labels,
+and frontiers, corridor and done words drawn at random.  Imports no
+JAX."""
 import numpy as np
 import torch
 
-from repro_torch import bitset, engine, tdr_query
+from repro_torch import bitset, compressed, engine, tdr_query
+from repro_torch.kernels import ref
 
 N_LABELS = 16
 
 # name -> (V', label classes, Q, subset states, extra words a stack row,
-#          forward on, backward on, some columns already done)
+#          forward on, backward on, some columns already done, edges)
+# edges: "random" (uniform endpoints), "repeats" (parallel edges under
+# other labels and exact repeats, as a padded chunk repeats a real edge)
+# or "sparse" (edges out of half the rows and into another half, the
+# other rows empty)
 CASES = {
-    "main-s4": (32768, 17, 32, 4, 0, True, True, False),
-    "main-s16": (32768, 17, 32, 16, 0, True, True, False),
-    "compact-96": (96, 9, 32, 16, 0, True, True, False),
-    "compact-1056-wide": (1056, 17, 32, 4, 3, True, True, False),
-    "ragged-q8": (2048, 9, 8, 4, 0, True, True, False),
-    "ragged-q40": (2048, 9, 40, 16, 0, True, True, False),
-    "neutral-only": (2048, 1, 32, 4, 0, True, True, False),
-    "forward-off": (2048, 9, 32, 4, 0, False, True, False),
-    "backward-off": (2048, 9, 32, 16, 0, True, False, False),
-    "meet-only": (2048, 9, 32, 4, 0, False, False, False),
-    "done-columns": (2048, 9, 40, 4, 0, True, True, True),
-    "states-32": (1024, 9, 32, 32, 0, True, True, False),
+    "main-s4": (32768, 17, 32, 4, 0, True, True, False, "random"),
+    "main-s16": (32768, 17, 32, 16, 0, True, True, False, "random"),
+    "compact-96": (96, 9, 32, 16, 0, True, True, False, "random"),
+    "compact-1056-wide": (1056, 17, 32, 4, 3, True, True, False, "random"),
+    "ragged-q8": (2048, 9, 8, 4, 0, True, True, False, "random"),
+    "ragged-q40": (2048, 9, 40, 16, 0, True, True, False, "random"),
+    "neutral-only": (2048, 1, 32, 4, 0, True, True, False, "random"),
+    "forward-off": (2048, 9, 32, 4, 0, False, True, False, "random"),
+    "backward-off": (2048, 9, 32, 16, 0, True, False, False, "random"),
+    "meet-only": (2048, 9, 32, 4, 0, False, False, False, "random"),
+    "done-columns": (2048, 9, 40, 4, 0, True, True, True, "random"),
+    "states-32": (1024, 9, 32, 32, 0, True, True, False, "random"),
+    "repeated-edges": (2048, 9, 32, 16, 0, True, True, False, "repeats"),
+    "empty-rows": (2048, 9, 32, 4, 0, True, True, False, "sparse"),
 }
 # the cases a CPU run takes in seconds
 SMALL = tuple(n for n in CASES if CASES[n][0] < 32768)
 
 
+def case_edges(rng, v: int, kind: str):
+    """``(src, dst, lab)`` of ``4 * v`` edges of one case."""
+    e = 4 * v
+    if kind == "sparse":
+        src = rng.integers(0, v // 2, e)
+        dst = rng.integers(v // 4, 3 * v // 4, e)
+    else:
+        src, dst = rng.integers(0, v, e), rng.integers(0, v, e)
+    lab = rng.integers(0, N_LABELS, e)
+    if kind == "repeats":
+        par = rng.integers(0, e, e // 4)       # the same pair, other labels
+        rep = rng.integers(0, e, e // 4)       # the same edge again
+        src = np.concatenate([src, src[par], src[rep]])
+        dst = np.concatenate([dst, dst[par], dst[rep]])
+        lab = np.concatenate([lab, rng.integers(0, N_LABELS, e // 4),
+                              lab[rep]])
+    return src, dst, lab
+
+
 def round_case(name: str, device, seed: int = 0):
-    """``(operands, cf, cb, full_mask)`` of case ``name``: ``operands`` are
-    the keyword arguments of ``ops.class_round`` but the two direction
-    flags, ``full_mask`` the queries' target states (int64 numpy [Q])."""
-    v, c1, q, n_states, extra, cf, cb, with_done = CASES[name]
+    """``(operands, cf, cb, full_mask, dense)`` of case ``name``:
+    ``operands`` are the keyword arguments of ``ops.class_round`` but the
+    two direction flags (``lists_rev``/``lists_fwd``: the edges j→i / i→j
+    of row i as ``EdgeLists``; ``allow``/``has``/``sh`` ``[L, Q]``),
+    ``full_mask`` the queries' target states (int64 numpy [Q]) and
+    ``dense`` the same round's dense operands: the class stacks
+    ``adj_rev``/``adj_fwd`` ``[C+1, V', Kw]`` of the same edges (one class
+    a special label, the last the neutral one) with ``allow``/``has``/
+    ``sh`` ``[C+1, Q]``."""
+    v, c1, q, n_states, extra, cf, cb, with_done, kind = CASES[name]
     rng = np.random.default_rng([seed, list(CASES).index(name)])
     max_m = n_states.bit_length() - 1
-    e = 4 * v
-    src, dst = rng.integers(0, v, e), rng.integers(0, v, e)
-    lab = rng.integers(0, N_LABELS, e)
+    src, dst, lab = case_edges(rng, v, kind)
     special = tuple(range(c1 - 1))       # the rest merge into the neutral
-    stacks = []
+    stacks, lists = [], []
     for rev in (True, False):
         a = engine.pack_label_class_edges_np(src, dst, lab, v, special,
                                              reverse=rev)
@@ -50,6 +83,9 @@ def round_case(name: str, device, seed: int = 0):
                 [a, np.zeros(a.shape[:2] + (extra,), np.uint32)], axis=2)
             a[:, rng.integers(0, v, 64), -1] |= np.uint32(1 << 7)
         stacks.append(bitset.np_to_words(a, device))
+        lists.append(compressed.edge_lists(
+            dst if rev else src, src if rev else dst, lab, v, N_LABELS,
+            device))
 
     n_req = rng.integers(0, min(max_m, c1 - 1) + 1, q)
     req = np.full((q, max_m), -1, np.int64)
@@ -60,10 +96,14 @@ def round_case(name: str, device, seed: int = 0):
             forb[j, 0] |= np.uint32(1 << int(rng.integers(c1 - 1)))
     full_mask = (1 << n_req) - 1
     class_label = torch.tensor(special + (-1,), device=device)
+    req_t, forb_t = torch.from_numpy(req).to(device), bitset.np_to_words(
+        forb, device)
     allow, has, sh = tdr_query._edge_state_masks(
-        class_label, torch.from_numpy(req).to(device),
-        bitset.np_to_words(forb, device), n_states, max_m,
-        neutral=class_label < 0)
+        torch.arange(N_LABELS, device=device), req_t, forb_t, n_states,
+        max_m)
+    dense = dict(zip(("allow", "has", "sh"), tdr_query._edge_state_masks(
+        class_label, req_t, forb_t, n_states, max_m,
+        neutral=class_label < 0)), adj_rev=stacks[0], adj_fwd=stacks[1])
     sup_need = tdr_query._sup_need(
         torch.from_numpy(full_mask.astype(np.int32)).to(device), n_states)
 
@@ -76,9 +116,45 @@ def round_case(name: str, device, seed: int = 0):
     cor = np.where(rng.random((v, q)) < 0.9, 0xFFFFFFFF, 0)
     done = rng.random(q) < (0.5 if with_done else 0.0)
     operands = dict(
-        adj_rev=stacks[0], adj_fwd=stacks[1], allow=allow, has=has, sh=sh,
+        lists_rev=lists[0], lists_fwd=lists[1], allow=allow, has=has, sh=sh,
         sup_need=sup_need, cor_w=bitset.np_to_words(cor.astype(np.uint32),
                                                     device),
         f=frontier(), b=frontier(),
         done_w=bitset.np_to_words(bitset.pack_bits_np(done), device))
-    return operands, cf, cb, full_mask
+    return operands, cf, cb, full_mask, dense
+
+
+def dense_round(dense, c, cf: bool, cb: bool):
+    """The round of ``c`` (``round_case``'s operands) as the dense
+    composition on ``dense``'s class stacks: ``ref.class_push_ref`` a
+    direction (one ``bitset_matmul_ref`` a class), the corridor and
+    live-column mask, the new bits and ``ref.subset_meet`` -> ``(f_next,
+    b_next, state)`` as ``ops.class_round`` returns them."""
+    ops = [dense[k] for k in ("allow", "has", "sh")]
+    f, b = c["f"], c["b"]
+    done = bitset.unpack_bits(c["done_w"], f.shape[1])
+    mask = c["cor_w"] & bitset.full_words_where(~done)[None, :]
+    new_f = (ref.class_push_ref(dense["adj_rev"], f, *ops) & mask & ~f
+             if cf else torch.zeros_like(f))
+    new_b = (ref.class_push_ref(dense["adj_fwd"], b, *ops) & mask & ~b
+             if cb else torch.zeros_like(b))
+    f, b = f | new_f, b | new_b
+    done = done | ref.subset_meet(f, b, c["sup_need"])
+    added = torch.stack([(new_f != 0).any(), (new_b != 0).any()])
+    return f, b, torch.cat([added.to(torch.int32), bitset.pack_bits(done)])
+
+
+def stacks_of_lists(lists, special) -> torch.Tensor:
+    """The label-class stack ``[C+1, V', ceil(V'/32)]`` holding the edges
+    of an ``EdgeLists``: one class a ``special`` label, the last every
+    other label."""
+    row_ptr, cols, labels = (bitset.words_to_np(t).astype(np.int64)
+                             for t in lists[:3])
+    v_p = row_ptr.shape[0] - 1
+    rows = np.repeat(np.arange(v_p), np.diff(row_ptr))
+    cls = np.full(labels.shape, len(special), np.int64)
+    for i, l in enumerate(special):
+        cls[labels == l] = i
+    out = np.zeros((len(special) + 1, v_p, bitset.n_words(v_p)), np.uint32)
+    bitset.set_bits_np(out, (cls, rows), cols)
+    return bitset.np_to_words(out, lists.row_ptr.device)

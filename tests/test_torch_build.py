@@ -11,6 +11,8 @@ from repro.core import (compressed as rcomp, engine as reng, graph as RG,
                         tdr_build as RB)
 from repro_torch import bitset, compressed, engine, graph as G, tdr_build
 
+import _class_round_cases as rounds
+
 CFG = dict(vtx_bits=64, g_max=4, k=3)
 GRAPHS = [("er", 40, 0), ("er", 60, 3), ("pa", 50, 1), ("pa", 60, 2)]
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
@@ -310,6 +312,33 @@ def test_label_adjacency_cache_is_bounded():
     for l in range(8):
         eng.label_class_adjacency((l,))
     assert len(eng._label_adj) <= engine.Engine.LABEL_ADJ_CACHE
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+def test_edge_lists_are_cached_per_direction(reverse):
+    """``Engine.edge_lists`` holds, row by row, the edges of every class
+    stack of its direction, whatever the special labels; a second lookup
+    is a hit (no miss, no bytes, the same object), and looking the lists
+    up packs no stack."""
+    g = G.erdos_renyi(60, 3.0, 8, seed=2)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    before = dict(engine.LABEL_CLASS_PACKS)
+
+    def moved():
+        return {k: engine.LABEL_CLASS_PACKS[k] - before.get(k, 0)
+                for k in ("stacks", "bytes", "lists", "list_bytes")}
+
+    lists = eng.edge_lists(reverse=reverse)
+    nbytes = 4 * (g.n_vertices + 1) + 8 * g.n_edges
+    assert moved() == {"stacks": 0, "bytes": 0, "lists": 1,
+                       "list_bytes": nbytes}
+    assert lists.nbytes == nbytes and lists.n_labels == g.n_labels
+    assert eng.edge_lists(reverse=reverse) is lists
+    assert moved()["lists"] == 1 and not eng._label_adj
+    for special in ((1, 3, 6), (0,), ()):
+        stack = eng.label_class_adjacency(special, reverse=reverse)
+        assert torch.equal(rounds.stacks_of_lists(lists, special), stack)
+    assert list(eng._edge_lists) == [reverse]
 
 
 def test_label_adjacency_makes_room_when_the_device_runs_out(monkeypatch):

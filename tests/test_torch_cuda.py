@@ -199,16 +199,20 @@ def test_block_sparse_live_list_kernel(cuda, br, bw, w, frontier):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(rounds.CASES))
 def test_class_round_kernel_matches_plain(cuda, name):
-    """One phase-2 round through the ``class_round`` kernel equals its plain
-    version on the same card inputs: the new frontiers, both changed
-    flags and the done words, bit for bit."""
-    c, cf, cb, _ = rounds.round_case(name, cuda)
+    """One phase-2 round through the ``class_round`` kernel on the edge
+    lists equals its plain version on the same card inputs and the dense
+    composition on the label-class stacks packed from the same edges: the
+    new frontiers, both changed flags and the done words, bit for bit."""
+    c, cf, cb, _, dense_ops = rounds.round_case(name, cuda)
     n0 = ops.KERNEL_LAUNCHES["class_round"]
     got = ops.class_round(**c, cf=cf, cb=cb)
     assert ops.KERNEL_LAUNCHES["class_round"] == n0 + 1
     want = ref.class_round_ref(**c, cf=cf, cb=cb)
-    for g, w, what in zip(got, want, ("f_next", "b_next", "state")):
+    dense = rounds.dense_round(dense_ops, c, cf, cb)
+    for g, w, d, what in zip(got, want, dense,
+                             ("f_next", "b_next", "state")):
         assert torch.equal(g, w), what
+        assert torch.equal(g, d), what
 
 
 @pytest.mark.gpu

@@ -336,13 +336,16 @@ def test_block_sparse_lane_plain_matches_reference(op, shape):
 
 
 @pytest.mark.parametrize("name", rounds.SMALL)
-def test_class_round_plain_matches_direct_composition(name):
-    """``ops.class_round`` on the CPU (``ref.class_round_ref``) equals the
-    round written out: one ``bitset_matmul_ref`` per class and direction,
-    each class's subset transition (the neutral class's ``has = ~0, sh =
-    0`` too), the corridor and live-column mask, the new bits, and a meet
-    searched over every state pair against the queries' full masks."""
-    c, cf, cb, full_mask = rounds.round_case(name, "cpu")
+def test_class_round_plain_matches_direct_composition(name, one_thread):
+    """``ops.class_round`` on the CPU (``ref.class_round_ref`` on the
+    edge lists with every label's operands) equals the round written out
+    on the dense label-class stacks packed from the same edges: one
+    ``bitset_matmul_ref`` per class and direction, each class's subset
+    transition (the neutral class's ``has = ~0, sh = 0`` too), the
+    corridor and live-column mask, the new bits, and a meet searched over
+    every state pair against the queries' full masks."""
+    c, cf, cb, full_mask, dense = rounds.round_case(name, "cpu")
+    adj_rev, adj_fwd = dense["adj_rev"], dense["adj_fwd"]
     f, b, cor = c["f"], c["b"], c["cor_w"]
     v_p, q = f.shape
     n_states = c["sup_need"].shape[0]
@@ -353,13 +356,13 @@ def test_class_round_plain_matches_direct_composition(name):
         xk = torch.cat([x, x.new_zeros((adj.shape[2] * 32 - v_p, q))])
         upd = torch.zeros_like(x)
         for k in range(adj.shape[0]):
-            t = ref.bitset_matmul_ref(adj[k], xk) & c["allow"][k]
-            h, sh = c["has"][k], c["sh"][k]
+            t = ref.bitset_matmul_ref(adj[k], xk) & dense["allow"][k]
+            h, sh = dense["has"][k], dense["sh"][k]
             upd |= (t & h) | ((t & ~h) << sh)
         return upd
 
-    new_f = push(c["adj_rev"], f) & mask & ~f if cf else torch.zeros_like(f)
-    new_b = push(c["adj_fwd"], b) & mask & ~b if cb else torch.zeros_like(b)
+    new_f = push(adj_rev, f) & mask & ~f if cf else torch.zeros_like(f)
+    new_b = push(adj_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
     want_f, want_b = f | new_f, b | new_b
     shifts = np.arange(n_states, dtype=np.uint32)
     bf = (bitset.words_to_np(want_f)[..., None] >> shifts) & 1   # [V, Q, S]
@@ -381,16 +384,56 @@ def test_class_round_plain_matches_direct_composition(name):
     np.testing.assert_array_equal(words[2:], bitset.pack_bits_np(want_done))
     assert 0 < int(want_done.sum()) < q or name in ("neutral-only",
                                                     "meet-only")
+    # the dense composition through ``ref.class_push_ref``
+    for g_, w_ in zip((got_f, got_b, state),
+                      rounds.dense_round(dense, c, cf, cb)):
+        assert torch.equal(g_, w_)
 
 
-@pytest.mark.parametrize("bad", ["stacks", "frontier", "classes", "states",
-                                 "done", "narrow_rows"])
+@pytest.mark.parametrize("name", rounds.SMALL)
+def test_class_lists_hold_the_stacks_edges(name, one_thread):
+    """Each direction's ``EdgeLists`` holds the edges of the dense class
+    stack packed from the same edges, every class and row: packed back
+    into a stack under the same special labels
+    (``rounds.stacks_of_lists``) it equals the stack on its first ``V'``
+    columns, and its bytes are the row pointers' and two words an
+    edge."""
+    c, _, _, _, dense = rounds.round_case(name, "cpu")
+    v_p = c["f"].shape[0]
+    special = tuple(range(dense["allow"].shape[0] - 1))
+    for key in ("lists_rev", "lists_fwd"):
+        lists, adj = c[key], dense["adj_" + key[-3:]]
+        got = rounds.stacks_of_lists(lists, special)
+        kw = bitset.n_words(v_p)
+        assert torch.equal(got, adj[:, :, :kw]), key
+        assert lists.n_labels == rounds.N_LABELS
+        assert lists.nbytes == 4 * (v_p + 1 + 2 * lists.cols.numel())
+        assert int(lists.row_ptr[-1]) == lists.labels.numel()
+    if name == "empty-rows":
+        deg = [np.diff(bitset.words_to_np(c[k].row_ptr).astype(np.int64))
+               for k in ("lists_rev", "lists_fwd")]
+        assert (deg[0][:v_p // 4] == 0).all() and (deg[1][v_p // 2:] == 0
+                                                   ).all()
+
+
+@pytest.mark.parametrize("bad", ["lists", "frontier", "classes", "states",
+                                 "done", "row_ptr", "n_labels", "column",
+                                 "label"])
 def test_class_round_rejects_bad_operands(bad):
-    """The card wrapper's shape check refuses what the kernel cannot take."""
+    """The card wrapper's shape check refuses what the kernel cannot take;
+    an edge whose column is not below ``V'`` or whose label is not below
+    ``L`` is refused where the lists are made (``compressed.edge_lists``),
+    so no launch reads them back."""
     from repro_torch.kernels import class_round
-    c, _, _, _ = rounds.round_case("compact-96", "cpu")
-    if bad == "stacks":
-        c["adj_fwd"] = c["adj_fwd"][:-1]
+    c, _, _, _, _ = rounds.round_case("compact-96", "cpu")
+    lists = c["lists_fwd"]
+    v_p = c["f"].shape[0]
+
+    def check():
+        class_round.check_round(**c)
+
+    if bad == "lists":
+        c["lists_fwd"] = lists._replace(labels=lists.labels[:-1])
     elif bad == "frontier":
         c["b"] = c["b"][:, :16]
     elif bad == "classes":
@@ -399,10 +442,23 @@ def test_class_round_rejects_bad_operands(bad):
         c["sup_need"] = torch.zeros((33, 32), dtype=torch.int32)
     elif bad == "done":
         c["done_w"] = torch.zeros(2, dtype=torch.int32)
+    elif bad == "row_ptr":
+        c["lists_rev"] = c["lists_rev"]._replace(
+            row_ptr=c["lists_rev"].row_ptr[:-1])
+    elif bad == "n_labels":
+        c["lists_fwd"] = lists._replace(n_labels=lists.n_labels + 1)
     else:
-        c["adj_rev"], c["adj_fwd"] = (a[:, :, :2].contiguous()
-                                      for a in (c["adj_rev"], c["adj_fwd"]))
+        src = np.array([0, 5, v_p - 1])
+        dst, lab = np.array([1, 2, 3]), np.zeros(3)
+        if bad == "column":
+            dst[1] = v_p
+        else:
+            lab[2] = rounds.N_LABELS
+
+        def check():
+            compressed.edge_lists(src, dst, lab, v_p, rounds.N_LABELS,
+                                  "cpu")
     with pytest.raises(ValueError):
-        class_round.check_round(**c)
-    c_ok, _, _, _ = rounds.round_case("compact-96", "cpu")
+        check()
+    c_ok, _, _, _, _ = rounds.round_case("compact-96", "cpu")
     class_round.check_round(**c_ok)

@@ -12,6 +12,7 @@ from repro.core import (dfs_baseline as RD, graph as RG, lcr as RL,
                         pattern as RP, tdr_build as RB, tdr_query as RQ)
 from repro_torch import (bitset, convert, dfs_baseline, engine, graph as G,
                          lcr, pattern, tdr_build, tdr_query)
+from repro_torch.kernels import ops
 
 CFG = dict(vtx_bits=64, g_max=4, k=3)
 BACKENDS = ("segment", "matmul")
@@ -277,6 +278,63 @@ def test_dense_cap_on_the_cpu_warns_and_keeps_answers(over):
     assert st.exact_jobs > 0
     assert idx.engine(config=ecfg).backend == (
         "segment" if over == "adjacency" else "matmul")
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("mode", ["auto", "full"])
+def test_boolean_batch_on_matmul_reads_lists_not_stacks(mode):
+    """A boolean ``answer_batch`` on ``matmul`` (CPU) packs no dense class
+    stack: its rounds read the edge lists, which a second batch finds
+    cached in the engine (nothing packed at all).  Answers,
+    ``exact_rounds`` and host syncs equal the segment backend's."""
+    rg, ridx, g, idx, specs, want = _case("er", 45, 2.3, 6, 24)
+    pq = _patterns(pattern, specs, 4)
+    st_s = tdr_query.QueryStats()
+    seg = tdr_query.answer_batch(idx, pq, backend="segment",
+                                 exact_mode=mode, stats=st_s, device="cpu")
+    assert seg.tolist() == want
+    for trip in range(2):
+        before = dict(engine.LABEL_CLASS_PACKS)
+        st = tdr_query.QueryStats()
+        got = tdr_query.answer_batch(idx, pq, backend="matmul",
+                                     exact_mode=mode, stats=st,
+                                     device="cpu")
+        moved = {k: engine.LABEL_CLASS_PACKS[k] - before.get(k, 0)
+                 for k in ("stacks", "bytes", "lists")}
+        assert got.tolist() == want, trip
+        assert (st.exact_rounds, st.host_syncs) == (st_s.exact_rounds,
+                                                    st_s.host_syncs), trip
+        assert st.exact_rounds > 0 and st.operand_bytes > 0
+        assert moved["stacks"] == moved["bytes"] == 0, trip
+        if trip:
+            assert moved["lists"] == 0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_operand_bytes_count_each_active_direction(monkeypatch):
+    """``QueryStats.operand_bytes`` adds, for each ``class_round`` launch
+    of a round, the bytes of the lists of each direction it runs: rounds
+    × active directions × the full graph's lists (row pointers and two
+    words an edge); a chunk's first meet runs none."""
+    rg, ridx, g, idx, specs, want = _case("er", 45, 2.3, 6, 24)
+    real, seen = ops.class_round, []
+
+    def spy(lists_rev, lists_fwd, *rest):
+        cf, cb = rest[-2:]
+        seen.append((int(cf) + int(cb), lists_rev.nbytes, lists_fwd.nbytes))
+        return real(lists_rev, lists_fwd, *rest)
+
+    monkeypatch.setattr(ops, "class_round", spy)
+    st = tdr_query.QueryStats()
+    got = tdr_query.answer_batch(idx, _patterns(pattern, specs, 4),
+                                 backend="matmul", exact_mode="full",
+                                 stats=st, device="cpu")
+    assert got.tolist() == want
+    list_bytes = 4 * (g.n_vertices + 1) + 8 * g.n_edges
+    assert {b for _, *bs in seen for b in bs} == {list_bytes}
+    assert sum(n > 0 for n, _, _ in seen) == st.exact_rounds > 0
+    assert st.operand_bytes == list_bytes * sum(n for n, _, _ in seen)
+    assert any(n == 2 for n, _, _ in seen)
 
 
 def _ref_state(ridx) -> dict:

@@ -145,6 +145,38 @@ def test_class_stack_bytes_count_every_pack():
             2 * c1 * 64 * bitset.n_words(64) * 4, 0)
 
 
+def test_class_list_bytes_count_every_pack():
+    """``_edge_lists`` counts each list it makes under ``lists`` /
+    ``list_bytes``, the engine's builds and a compacted chunk's own, and
+    no dense stack: ``class_stack_mb`` keeps reading the stacks."""
+    g = G.erdos_renyi(150, 3.0, 6, seed=3)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    special = (0, 2, 5)
+
+    def packed(*args):
+        before = dict(engine.LABEL_CLASS_PACKS)
+        jit0 = engine.jit_cache_entries()
+        lists = tdr_query._edge_lists(eng, special, *args)
+        assert lists is not None
+        moved = {k: engine.LABEL_CLASS_PACKS[k] - before.get(k, 0)
+                 for k in ("stacks", "bytes", "lists", "list_bytes")}
+        return moved, engine.jit_cache_entries() - jit0
+
+    v, e = g.n_vertices, g.n_edges
+    # the full graph's lists, both directions the engine's own
+    assert packed(v) == ({"stacks": 0, "bytes": 0, "lists": 2,
+                          "list_bytes": 2 * (4 * (v + 1) + 8 * e)}, 2)
+    assert packed(v) == ({"stacks": 0, "bytes": 0, "lists": 0,
+                          "list_bytes": 0}, 0)      # cache hits
+    # a compacted chunk: its own lists, never cached
+    keep = (g.src < 64) & (g.indices < 64)
+    edges = (g.src[keep], g.indices[keep], g.labels[keep])
+    for _ in range(2):
+        assert packed(64, edges) == (
+            {"stacks": 0, "bytes": 0, "lists": 0,
+             "list_bytes": 2 * (4 * 65 + 8 * int(keep.sum()))}, 0)
+
+
 def test_stack_copies_of_an_update_are_counted_apart_from_packs():
     g = G.erdos_renyi(150, 3.0, 6, seed=7)
     eng = engine.make_engine(g, backend="matmul", device="cpu")

@@ -18,6 +18,8 @@ from repro_torch import (bitset, compressed as C, convert, dfs_baseline,
                          tdr_query)
 from test_torch_query import _ref_state
 
+import _class_round_cases as rounds
+
 CFG = tdr_build.TDRConfig(vtx_bits=64, g_max=4, k=3)
 RCFG = RB.TDRConfig(vtx_bits=64, g_max=4, k=3)
 
@@ -316,6 +318,48 @@ def test_layout_pin_matches_chain_from_empty_regions():
 
 
 # ------------------------------------------------------- engine operands
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_engine_apply_delta_carries_edge_lists(seed):
+    """Cached edge lists carry over an update rebuilt from the new graph:
+    each direction's equals the lists a fresh engine builds, holds the new
+    class stacks' edges, the old engine's lists are unchanged, the new
+    engine keeps the reverse CSR the rebuild read, and nothing counts as
+    a miss or in ``engine.jit_cache_entries``."""
+    rng = np.random.default_rng(seed)
+    g = G.random_graph("er", N_V, 2.0, N_L, seed=seed)
+    eng = engine.make_engine(g, backend="matmul", device="cpu")
+    before = {r: tuple(t.clone() for t in eng.edge_lists(reverse=r)[:3])
+              for r in (True, False)}
+    add, rem = _random_step(rng, g)
+    add.append((0, 1, 2))                      # at least one real change
+    delta = g.apply_updates(add, rem)
+    n0, packs0 = engine.jit_cache_entries(), dict(engine.LABEL_CLASS_PACKS)
+    eng2 = eng.apply_delta(delta.graph, delta.added, delta.removed,
+                           device="cpu")
+    assert engine.jit_cache_entries() == n0
+    assert dict(engine.LABEL_CLASS_PACKS) == packs0
+    assert list(eng2._edge_lists) == list(eng._edge_lists) == [True, False]
+    h = delta.graph
+    want_rev = h.reverse()
+    assert np.array_equal(eng2._rev_graph.indptr, want_rev.indptr)
+    assert np.array_equal(eng2._rev_graph.indices, want_rev.indices)
+    fresh = engine.make_engine(h, backend="matmul", device="cpu")
+    for rev, old in before.items():
+        got = eng2._edge_lists[rev]
+        want = fresh.edge_lists(reverse=rev)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b), rev
+        assert got.n_labels == want.n_labels
+        for labels in ((0, 2), (1,)):
+            stack = engine.pack_label_class_edges_np(
+                h.src, h.indices, h.labels, h.n_vertices, labels,
+                reverse=rev)
+            assert np.array_equal(bitset.words_to_np(
+                rounds.stacks_of_lists(got, labels)), stack), (labels, rev)
+        for a, b in zip(eng._edge_lists[rev][:3], old):
+            assert torch.equal(a, b), rev
+
+
 @pytest.mark.parametrize("seed", [11, 12, 13])
 def test_engine_apply_delta_patches_label_class_stacks(seed):
     """Cached label-class stacks carry over an update patched, not
