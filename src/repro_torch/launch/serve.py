@@ -23,13 +23,12 @@ label-class stack packed after warmup):
   replaying probe queries padded to each size.
 * **Pinned statics.**  The two content-dependent operand shapes are
   pinned from the warmup sample: ``pin_m`` fixes the packed subset-state
-  width and (``pin_labels``) the special-label-class set is fixed for the
-  ``matmul`` backend's per-class adjacency, which then comes from the
-  engine's LRU — so batch composition changes array *contents*, never
-  shapes.  ``exact_mode`` defaults to ``"full"``:
-  serving trades the corridor-compaction win for hard shape stability and
-  zero per-batch host compaction work (the corridor still masks compute
-  on device).
+  width and the special-label-class set is fixed for the ``matmul``
+  backend's per-class adjacency, which then comes from the engine's LRU
+  — so batch composition changes array *contents*, never shapes.
+  ``exact_mode`` defaults to ``"full"``: serving trades the
+  corridor-compaction win for hard shape stability and zero per-batch
+  host compaction work (the corridor still masks compute on device).
 * **Caching.**  A bounded result cache keyed ``(u, v, canonical pattern,
   kind, bound)`` resolves repeats without touching the queue; duplicates
   *within* a batch collapse onto one plan row set (fan-out at
@@ -160,7 +159,6 @@ class ServeConfig:
     # whose padded edges times the cap reach 2**32, so a larger graph
     # takes a lower cap
     count_cap: int = COUNT_CAP
-    pin_labels: bool = True      # pin the label-class set at warmup
     exact_chunk: int = 32
     # dirty-set fraction beyond which submit_update falls back to a full
     # (layout-pinned) rebuild — see tdr_build.update_index
@@ -982,8 +980,8 @@ class QueryServer:
         """Run the serving shapes once from a representative sample.
 
         1. Answers the whole sample once, learning the pins: ``pin_m`` =
-           the widest require-set seen, and (``pin_labels``) the
-           special-label-class set over the sample's plan rows.
+           the widest require-set seen, and the special-label-class set
+           over the sample's plan rows.
         2. Picks *probe* queries — ones the filter cascade left for
            phase 2 (``QueryStats.exact_qids``) — and replays them padded
            to **every** bucket of the job grid up to ``max_jobs``, so
@@ -1000,7 +998,7 @@ class QueryServer:
         n0 = engine_mod.jit_cache_entries()
         plan = tdr_query.compile_queries(idx, sample, max_m=cfg.max_m)
         self._pin_m = int((plan.req_labels >= 0).sum(axis=1).max(initial=0))
-        if cfg.pin_labels and plan.n_jobs:
+        if plan.n_jobs:
             eng = idx.engine(cfg.backend)
             ex = tdr_query._executor(idx, eng)
             self._special = ex.special_labels(

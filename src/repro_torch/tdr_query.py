@@ -172,6 +172,23 @@ class QueryStats:
     operand_bytes: int = 0
     _round_parts: list = dataclasses.field(default_factory=list, repr=False)
 
+    def add_chunk(self, rounds: int, syncs: int, wait_s: float,
+                  n_active: int, v_total: int,
+                  compacted: bool | None = None, fused_rounds: int = 0,
+                  operand_bytes: int = 0) -> None:
+        """Fold one phase-2 chunk's counters in.  ``compacted`` None (the
+        lane kinds) counts the chunk as neither compacted nor full."""
+        self._round_parts.append(rounds)
+        self.host_syncs += syncs
+        self.sync_wait_s += wait_s
+        self.corridor_active += n_active
+        self.corridor_total += v_total
+        self.fused_rounds += fused_rounds
+        self.operand_bytes += operand_bytes
+        if compacted is not None:
+            self.compacted_chunks += compacted
+            self.full_chunks += not compacted
+
     @property
     def exact_rounds(self) -> int:
         return int(sum(self._round_parts))
@@ -652,16 +669,62 @@ class PlanDevice(NamedTuple):
     forb_raw_w: torch.Tensor
     full_mask: torch.Tensor
 
+    @classmethod
+    def of(cls, plan: QueryPlan, device) -> "PlanDevice":
+        return cls(_to_long(plan.u, device), _to_long(plan.v, device),
+                   _to_long(plan.req_labels, device),
+                   bitset.np_to_words(plan.forb_raw_w, device),
+                   torch.from_numpy(plan.full_mask).to(device))
+
+    def rows(self, jobs: np.ndarray, m_eff: int):
+        """``(req_labels, forb_raw_w, full_mask)`` of ``jobs``, the
+        required labels cut to ``m_eff`` columns."""
+        j = _to_long(jobs, self.u.device)
+        return (self.req_labels[j][:, :m_eff], self.forb_raw_w[j],
+                self.full_mask[j])
+
+
+def _pad_first(rows: np.ndarray, width: int) -> np.ndarray:
+    """``rows`` padded along its first axis to ``width`` with copies of
+    its first row.  A chunk's padding jobs repeat its first job, which
+    changes neither its answers nor its corridor union."""
+    if len(rows) >= width:
+        return rows
+    return np.concatenate(
+        [rows, np.repeat(rows[:1], width - len(rows), axis=0)])
+
+
+def _chunks(jobs: np.ndarray, width: int):
+    """``(c0, padded jobs, real_n)`` for each ``width``-job chunk of
+    ``jobs``, the tail chunk padded by ``_pad_first``."""
+    for c0 in range(0, len(jobs), width):
+        part = jobs[c0:c0 + width]
+        yield c0, _pad_first(part, width), len(part)
+
+
+class Subgraph(NamedTuple):
+    """The graph one phase-2 chunk runs on: a corridor's induced subgraph,
+    renumbered, or the full graph (``sub_ids`` and ``renum`` None)."""
+    sub_ids: np.ndarray | None  # local -> original vertex ids
+    renum: np.ndarray | None    # original -> local vertex ids (-1 outside)
+    src: np.ndarray             # edge sources int32 [E']
+    dst: np.ndarray             # edge targets int32 [E']
+    lab: np.ndarray             # edge labels int32 [E']
+    n_sub: int                  # |V'| before padding
+    v_p: int                    # padded vertex bucket
+
+    def endpoints(self, plan: QueryPlan, jobs: np.ndarray, device):
+        """The jobs' ``(u, v)`` in this graph's numbering, on ``device``."""
+        return tuple(_to_long(e if self.renum is None else self.renum[e],
+                              device) for e in (plan.u[jobs], plan.v[jobs]))
+
 
 @dataclasses.dataclass
 class ChunkResult:
     """Result of one phase-2 chunk."""
-    jobs: np.ndarray        # padded job ids [Q]
-    real_n: int
     reached: torch.Tensor | np.ndarray   # bool [Q]
     rounds: int
     n_active: int = 0       # |V'| this chunk ran on
-    v_total: int = 0        # |V| of the full graph
     compacted: bool = False  # ran on an induced subgraph
     syncs: spans.Syncs = dataclasses.field(default_factory=spans.Syncs)
     fused_rounds: int = 0   # rounds run by the class_round kernel
@@ -734,9 +797,9 @@ def _class_stacks(eng: "engine_mod.Engine", special: tuple[int, ...],
 
 
 class ExactExecutor:
-    """Phase-2 executor bound to one (index, engine) pair: holds the host
-    mirrors for per-chunk corridor compaction and the cached full-graph
-    incidence.
+    """Phase-2 executor bound to one (index, engine) pair: holds the full
+    graph's host edge lists (``full``), which per-chunk corridor
+    compaction reads, and its cached incidence.
 
     It holds the pair weakly: the engine caches its executor, and a
     strong reference back would make index, engine and executor a cycle
@@ -752,10 +815,9 @@ class ExactExecutor:
         self._index = weakref.ref(index)
         self._engine = weakref.ref(eng)
         g = index.graph
-        self.src_np = g.src
-        self.dst_np = np.asarray(g.indices)
-        self.lab_np = np.asarray(g.labels)
-        self._full_inc: tuple | None = None
+        self.full = Subgraph(None, None, g.src, np.asarray(g.indices),
+                             np.asarray(g.labels), g.n_vertices, g.n_vertices)
+        self._full_inc: dict[int, tuple] = {}   # sentinel -> incidence
         self._elab: torch.Tensor | None = None
 
     @property
@@ -784,10 +846,15 @@ class ExactExecutor:
         actually present, not the plan-level ``max_m`` cap.  ``pin_m``
         (serving) raises it to a fixed floor, capped at ``max_m``, so
         steady traffic keeps one state width whatever a batch holds; a
-        wider state set only carries more empty states."""
+        wider state set only carries more empty states.  Raises past the
+        32 states one int32 word holds."""
         m_eff = int((plan.req_labels[jobs] >= 0).sum(axis=1).max(initial=0))
         if pin_m is not None:
             m_eff = min(max(m_eff, pin_m), plan.max_m)
+        if m_eff > 5:
+            raise ValueError(
+                f"max_m={m_eff} needs {1 << m_eff} subset states; the "
+                "packed executors hold at most 32 (max_m <= 5)")
         return m_eff, 1 << m_eff
 
     # ------------------------------------------------------------ planning
@@ -796,21 +863,10 @@ class ExactExecutor:
         """Exact corridor-union size per ``chunk``-sized job group (the
         compaction probe).  The tail group is padded with its own first
         job, which leaves its union unchanged."""
-        idx = self.index
-        groups = []
-        for c0 in range(0, len(jobs), chunk):
-            grp = jobs[c0:c0 + chunk]
-            if len(grp) < chunk:
-                grp = np.concatenate(
-                    [grp, np.full(chunk - len(grp), grp[0], grp.dtype)])
-            groups.append(grp)
-        pj = np.concatenate(groups)
-        step = max(chunk, (256 // chunk) * chunk)
+        pj = np.concatenate([grp for _, grp, _ in _chunks(jobs, chunk)])
         out = []
-        for i0 in range(0, len(pj), step):
-            sl = _to_long(pj[i0:i0 + step], idx.device)
-            mem = _corridor_member(pd.u[sl], pd.v[sl], idx.n_out, idx.n_in,
-                                   idx.vtx_packed)
+        for _, mem in self._corridor_slices(
+                pd, pj, max(chunk, (256 // chunk) * chunk)):
             union = mem.reshape(-1, chunk, mem.shape[1]).any(dim=1)
             out.append(union.sum(dim=1).cpu().numpy())
         return np.concatenate(out).astype(np.int32)
@@ -819,14 +875,20 @@ class ExactExecutor:
                          jobs: np.ndarray) -> np.ndarray:
         """Corridor membership bool [P, V] (fetched only for the jobs of
         chunks that will compact), in slices of 256 jobs."""
-        idx = self.index
-        out = np.empty((len(jobs), idx.graph.n_vertices), dtype=bool)
-        for c0 in range(0, len(jobs), 256):
-            sl = _to_long(jobs[c0:c0 + 256], idx.device)
-            out[c0:c0 + 256] = _corridor_member(
-                pd.u[sl], pd.v[sl], idx.n_out, idx.n_in,
-                idx.vtx_packed).cpu().numpy()
+        out = np.empty((len(jobs), self.index.graph.n_vertices), dtype=bool)
+        for i0, mem in self._corridor_slices(pd, jobs, 256):
+            out[i0:i0 + 256] = mem.cpu().numpy()
         return out
+
+    def _corridor_slices(self, pd: PlanDevice, jobs: np.ndarray,
+                         step: int):
+        """``(i0, membership bool [step, V])`` on the device for each
+        ``step``-job slice of ``jobs``."""
+        idx = self.index
+        for i0 in range(0, len(jobs), step):
+            sl = _to_long(jobs[i0:i0 + step], idx.device)
+            yield i0, _corridor_member(pd.u[sl], pd.v[sl], idx.n_out,
+                                       idx.n_in, idx.vtx_packed)
 
     # ------------------------------------------------------------ dispatch
     def run_chunk(self, plan: QueryPlan, pd: PlanDevice, jobs: np.ndarray,
@@ -836,87 +898,89 @@ class ExactExecutor:
         -> the one-directional full-graph executor; ``member is None`` ->
         full-graph bidirectional expansion (corridor built on the device);
         else corridor compaction over the member rows."""
-        if mode == "legacy":
-            reached, rounds, syncs = self._run_legacy(plan, jobs, special)
-            v_n = self.index.graph.n_vertices
-            return ChunkResult(jobs, len(jobs), reached, rounds, v_n, v_n,
-                               syncs=syncs)
         idx, eng = self.index, self.engine
+        if mode == "legacy":
+            reached, rounds, syncs = self._run_legacy(plan, pd, jobs, special)
+            return ChunkResult(reached, rounds, idx.graph.n_vertices,
+                               syncs=syncs)
         dev = idx.device
-        g = idx.graph
         q_n = len(jobs)
-        v_n = g.n_vertices
         m_eff, n_states = self.eff_states(plan, jobs, pin_m)
-        if n_states > 32:
-            raise ValueError(
-                f"max_m={m_eff} needs {n_states} subset states; the packed "
-                "executor holds at most 32 (max_m <= 5)")
 
-        compacted = member is not None
+        sub = self.subgraph(None if member is None else member.any(axis=0),
+                            mode)
+        compacted = sub.sub_ids is not None
+        if compacted and sub.src.shape[0] == 0:
+            # corridor holds no edges: only the empty path exists, and
+            # phase 1 already answered those — nothing is reachable
+            return ChunkResult(np.zeros(q_n, bool), 0, sub.n_sub, True)
+        req_labels, forb_raw_w, full_mask = pd.rows(jobs, m_eff)
+        su, sv = sub.endpoints(plan, jobs, dev)
         if compacted:
-            active = member.any(axis=0)
-            n_sub = int(active.sum())
-            v_p = graph_mod.pad_bucket(n_sub, lo=32)
-            if v_p >= v_n and mode == "auto":
-                compacted = False   # probe over-estimated; run full
-        jobs_t = _to_long(jobs, dev)
-        req_labels = pd.req_labels[jobs_t][:, :m_eff]
-        forb_raw_w = pd.forb_raw_w[jobs_t]
-        full_mask = pd.full_mask[jobs_t]
-        if compacted:
-            sub_ids, renum, s, d, l = graph_mod.induced_edges(
-                g, active, src=self.src_np)
-            if s.shape[0] == 0:
-                # corridor holds no edges: only the empty path exists, and
-                # phase 1 already answered those — nothing is reachable
-                return ChunkResult(jobs, q_n, np.zeros(q_n, bool), 0,
-                                   n_sub, v_n, True)
-            cor = np.zeros((v_p, q_n), dtype=bool)
-            cor[:n_sub] = member[:, sub_ids].T
+            cor = np.zeros((sub.v_p, q_n), dtype=bool)
+            cor[:sub.n_sub] = member[:, sub.sub_ids].T
             cor_w = bitset.full_words_where(torch.from_numpy(cor).to(dev))
-            su = _to_long(renum[plan.u[jobs]], dev)
-            sv = _to_long(renum[plan.v[jobs]], dev)
         else:
-            n_sub = v_p = v_n
-            s, d, l = self.src_np, self.dst_np, self.lab_np
-            su, sv = pd.u[jobs_t], pd.v[jobs_t]
             cor_w = _corridor_mask(su, sv, idx.n_out, idx.n_in,
                                    idx.vtx_packed)
-        max_rounds = v_p * n_states + 1
+        max_rounds = sub.v_p * n_states + 1
 
         lists = None
         if eng.backend == "matmul":
-            lists = _edge_lists(eng, special, v_p,
-                                (s, d, l) if compacted else None)
+            lists = _edge_lists(
+                eng, special, sub.v_p,
+                (sub.src, sub.dst, sub.lab) if compacted else None)
         if lists is not None:
             reached, rounds, syncs, nbytes = _bidi_matmul_core(
                 su, sv, *lists, req_labels, forb_raw_w, full_mask, cor_w,
                 n_states, m_eff, max_rounds)
-            return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
-                               compacted, syncs,
+            return ChunkResult(reached, rounds, sub.n_sub, compacted, syncs,
                                rounds if su.is_cuda else 0, nbytes)
 
-        if compacted:
-            e_real = s.shape[0]
-            ids_in = graph_mod.incidence_plan(d, v_p, e_real)
-            ids_out = graph_mod.incidence_plan(s, v_p, e_real)
-            lab_t, s_t, d_t = (_to_long(a, dev) for a in (l, s, d))
-            in_t = tuple(_to_long(a, dev) for a in ids_in)
-            out_t = tuple(_to_long(a, dev) for a in ids_out)
-        else:
-            lab_t, s_t, d_t, in_t, out_t = self._full_incidence()
-        if sum(a.numel() for a in in_t + out_t) * q_n * 4 > \
-                self.GATHER_BYTES_CAP:
-            in_t = out_t = None
         reached, rounds, syncs = _bidi_segment_core(
-            su, sv, req_labels, forb_raw_w, full_mask, cor_w, lab_t, s_t,
-            d_t, in_t, out_t, n_states, m_eff, max_rounds,
-            eng.config.chunk_words)
-        return ChunkResult(jobs, q_n, reached, rounds, n_sub, v_n,
-                           compacted, syncs)
+            su, sv, req_labels, forb_raw_w, full_mask, cor_w,
+            *self.device_edges(sub),
+            *self.incidence(sub, sub.src.shape[0], q_n), n_states, m_eff,
+            max_rounds, eng.config.chunk_words)
+        return ChunkResult(reached, rounds, sub.n_sub, compacted, syncs)
 
-    def _run_legacy(self, plan: QueryPlan, jobs: np.ndarray,
-                    special: tuple[int, ...]):
+    def subgraph(self, active: np.ndarray | None, mode: str) -> Subgraph:
+        """The graph a chunk with corridor ``active`` (bool [V]) runs on:
+        its induced subgraph, the vertex count padded onto the grid from
+        32; the full graph when ``active`` is None, or in "auto" mode when
+        that bucket is not below V (the probe over-estimated)."""
+        if active is not None:
+            n_sub = int(active.sum())
+            v_p = graph_mod.pad_bucket(max(n_sub, 1), lo=32)
+            if mode != "auto" or v_p < self.full.v_p:
+                return Subgraph(*graph_mod.induced_edges(
+                    self.index.graph, active, src=self.full.src), n_sub, v_p)
+        return self.full
+
+    def incidence(self, sub: Subgraph, sentinel: int, q_n: int):
+        """Padded incidence gather matrices ``(ids_in, ids_out)`` of
+        ``sub``'s edges on the device: edge ids grouped by dst / by src,
+        ``sentinel`` in the empty slots; the full graph's are cached per
+        sentinel.  ``(None, None)`` when their gather transient over
+        ``q_n`` jobs would pass ``GATHER_BYTES_CAP``: the rounds then
+        reduce by packed segment-ORs."""
+        full = sub.sub_ids is None
+        inc = self._full_inc.get(sentinel) if full else None
+        if inc is None:
+            dev = self.index.device
+            inc = tuple(
+                tuple(_to_long(a, dev) for a in
+                      graph_mod.incidence_plan(keys, sub.v_p, sentinel))
+                for keys in (sub.dst, sub.src))
+            if full:
+                self._full_inc[sentinel] = inc
+        if sum(a.numel() for ids in inc for a in ids) * q_n * 4 > \
+                self.GATHER_BYTES_CAP:
+            return None, None
+        return inc
+
+    def _run_legacy(self, plan: QueryPlan, pd: PlanDevice,
+                    jobs: np.ndarray, special: tuple[int, ...]):
         """The one-directional full-graph expansion (``exact_mode=
         "legacy"``, kept as a comparison executor): frontier ``[V, Q]``,
         bit s of word (i, q) set when vertex i is reached in subset state
@@ -928,15 +992,9 @@ class ExactExecutor:
         dev = idx.device
         v_n = idx.graph.n_vertices
         n_states = 1 << plan.max_m
-        if n_states > 32:
-            raise ValueError(
-                f"max_m={plan.max_m} needs {n_states} subset states; the "
-                "packed executor holds at most 32 (max_m <= 5)")
         max_rounds = v_n * n_states + 1
         uu, vv = _to_long(plan.u[jobs], dev), _to_long(plan.v[jobs], dev)
-        req_labels = _to_long(plan.req_labels[jobs], dev)
-        forb_raw_w = bitset.np_to_words(plan.forb_raw_w[jobs], dev)
-        full_mask = torch.from_numpy(plan.full_mask[jobs]).to(dev)
+        req_labels, forb_raw_w, full_mask = pd.rows(jobs, plan.max_m)
         cor_w = _corridor_mask(uu, vv, idx.n_out, idx.n_in, idx.vtx_packed)
         n_cls = len(special) + 1
         if eng.backend == "matmul" and eng.dense_fits(
@@ -949,30 +1007,18 @@ class ExactExecutor:
                 max_rounds)
         return _legacy_segment(
             uu, vv, req_labels, forb_raw_w, full_mask, cor_w,
-            self._edge_labels(), eng.edge_src, eng.edge_dst, n_states,
-            plan.max_m, max_rounds, eng.config.chunk_words)
+            *self.device_edges(self.full), n_states, plan.max_m,
+            max_rounds, eng.config.chunk_words)
 
-    def _edge_labels(self) -> torch.Tensor:
-        """The graph's edge labels on the index's device (cached)."""
+    def device_edges(self, sub: Subgraph) -> tuple:
+        """``sub``'s ``(lab, src, dst)`` on the index's device: the full
+        graph's are the engine's, with its labels cached here."""
+        dev = self.index.device
+        if sub.sub_ids is not None:
+            return tuple(_to_long(a, dev) for a in (sub.lab, sub.src, sub.dst))
         if self._elab is None:
-            self._elab = _to_long(self.lab_np, self.index.device)
-        return self._elab
-
-    def _full_incidence(self):
-        """Cached full-graph operand tuple for near-total corridors."""
-        if self._full_inc is None:
-            g = self.index.graph
-            dev = self.index.device
-            ids_in = graph_mod.incidence_plan(self.dst_np, g.n_vertices,
-                                              g.n_edges)
-            ids_out = graph_mod.incidence_plan(self.src_np, g.n_vertices,
-                                               g.n_edges)
-            self._full_inc = (
-                self._edge_labels(), self.engine.edge_src,
-                self.engine.edge_dst,
-                tuple(_to_long(a, dev) for a in ids_in),
-                tuple(_to_long(a, dev) for a in ids_out))
-        return self._full_inc
+            self._elab = _to_long(self.full.lab, dev)
+        return self._elab, self.engine.edge_src, self.engine.edge_dst
 
 
 def _executor(index: TDRIndex, eng: "engine_mod.Engine") -> ExactExecutor:
@@ -1078,7 +1124,6 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
         _check_device(index, mesh.device)
     with spans.span("query.phase1", stats, "phase1_s"):
         eng = index.engine(backend, engine_config)
-        dev = index.device
         stats.n_queries += plan.n_queries
         stats.n_jobs += plan.n_jobs
         answers = np.zeros(plan.n_queries, dtype=bool)
@@ -1119,104 +1164,69 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
         ex = _executor(index, eng)
         v_n = index.graph.n_vertices
         special = _pinned(ex.special_labels(plan_p, pending), special_labels)
-        pd = None
-        if exact_mode != "legacy":
-            pd = PlanDevice(_to_long(plan_p.u, dev),
-                            _to_long(plan_p.v, dev),
-                            _to_long(plan_p.req_labels, dev),
-                            bitset.np_to_words(plan_p.forb_raw_w, dev),
-                            torch.from_numpy(plan_p.full_mask).to(dev))
+        pd = PlanDevice.of(plan_p, index.device)
 
         # chunk layout + compaction probe: membership [P, V] is fetched
         # only for the jobs of chunks that will actually compact
-        starts = list(range(0, len(pending), exact_chunk))
-        if exact_mode in ("full", "legacy"):
-            compact_flags = [False] * len(starts)
-        elif exact_mode == "compact":
-            compact_flags = [True] * len(starts)
-        else:
+        groups = [pending[c0:c0 + exact_chunk]
+                  for c0 in range(0, len(pending), exact_chunk)]
+        compact_flags = [exact_mode == "compact"] * len(groups)
+        if exact_mode == "auto":
             # summary-first probe skip: a chunk whose every job has
             # ALL_ONE N_out[u] and N_in[v] rows has corridor == V exactly,
             # so it runs on the full graph without a probe
             flags = index.summary_flags()
-            jsat = (flags["sat_out"][plan_p.u[pending]]
-                    & flags["sat_in"][plan_p.v[pending]])
-            sat_chunks = [bool(jsat[c0:c0 + exact_chunk].all())
-                          for c0 in starts]
-            stats.saturated_chunks += sum(sat_chunks)
-            compact_flags = [False] * len(starts)
-            probe_starts = [c0 for c0, s in zip(starts, sat_chunks)
-                            if not s]
-            if probe_starts:
-                probe_jobs = np.concatenate(
-                    [pending[c0:c0 + exact_chunk] for c0 in probe_starts])
-                unions = ex.chunk_union_counts(pd, probe_jobs, exact_chunk)
-                for c0, u in zip(probe_starts, unions):
-                    compact_flags[c0 // exact_chunk] = (
+            probe = [i for i, grp in enumerate(groups) if not (
+                flags["sat_out"][plan_p.u[grp]]
+                & flags["sat_in"][plan_p.v[grp]]).all()]
+            stats.saturated_chunks += len(groups) - len(probe)
+            if probe:
+                unions = ex.chunk_union_counts(
+                    pd, np.concatenate([groups[i] for i in probe]),
+                    exact_chunk)
+                for i, u in zip(probe, unions):
+                    compact_flags[i] = (
                         graph_mod.pad_bucket(int(u), lo=32) < v_n)
         # under a mesh each rank runs the chunks it owns; membership is
         # fetched only for the compacted chunks this process runs
         size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
         owners = _chunk_owners(compact_flags, size)
         runs = [o == rank for o in owners]
-        member = None
-        mem_off = {}
-        if any(f and r for f, r in zip(compact_flags, runs)):
-            cjobs = np.concatenate(
-                [pending[c0:c0 + exact_chunk]
-                 for c0, flag, run in zip(starts, compact_flags, runs)
-                 if flag and run])
-            member = ex.corridor_members(pd, cjobs)
-            off = 0
-            for c0, flag, run in zip(starts, compact_flags, runs):
-                if flag and run:
-                    n = len(pending[c0:c0 + exact_chunk])
-                    mem_off[c0] = (off, off + n)
-                    off += n
+        mine = [grp for grp, flag, run in zip(groups, compact_flags, runs)
+                if flag and run]
+        if mine:
+            member = ex.corridor_members(pd, np.concatenate(mine))
 
-        # per chunk: rounds, |V'|, |V|, compacted, host syncs, fused
-        # rounds, operand bytes as their low 31 bits and the rest (int32
-        # words, as every payload that crosses ranks; zeros for another
-        # rank's); the seconds waited in the syncs are this process's own
-        parts = np.zeros((len(starts), 8), dtype=np.int32)
-        for i, (c0, flag) in enumerate(zip(starts, compact_flags)):
+        # per chunk: rounds, host syncs, |V'|, compacted, fused rounds,
+        # operand bytes as their low 31 bits and the rest (int32 words, as
+        # every payload that crosses ranks; zeros for another rank's); the
+        # seconds waited in the syncs are this process's own
+        parts = np.zeros((len(groups), 7), dtype=np.int32)
+        wait_s = [0.0] * len(groups)
+        off = 0     # this process's next row of ``member``
+        for i, (_, jobs, real_n) in enumerate(_chunks(pending, exact_chunk)):
             if not runs[i]:
                 continue
-            jobs = pending[c0:c0 + exact_chunk]
-            real_n = len(jobs)
-            rows = member[slice(*mem_off[c0])] if flag else None
-            if real_n < exact_chunk:   # pad to the chunk width
-                jobs = np.concatenate(
-                    [jobs, np.full(exact_chunk - real_n, jobs[0],
-                                   np.int64)])
-                if rows is not None:
-                    rows = np.concatenate(
-                        [rows, np.repeat(rows[:1], exact_chunk - real_n,
-                                         axis=0)])
+            rows = None
+            if compact_flags[i]:
+                rows = _pad_first(member[off:off + real_n], exact_chunk)
+                off += real_n
             res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode,
                                pin_m)
             reached = np.asarray(res.reached.cpu() if torch.is_tensor(
                 res.reached) else res.reached)[:real_n]
             np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]],
                              True)
-            parts[i] = (res.rounds, res.n_active, res.v_total,
-                        res.compacted, res.syncs.n, res.fused_rounds,
+            parts[i] = (res.rounds, res.syncs.n, res.n_active,
+                        res.compacted, res.fused_rounds,
                         res.operand_bytes & _LOW31, res.operand_bytes >> 31)
-            stats.sync_wait_s += res.syncs.wait_s
+            wait_s[i] = res.syncs.wait_s
         if mesh is not None:
             answers, parts = _combine_ranks(answers, parts, owners, mesh)
-        for rounds, n_active, v_total, compacted, syncs, fused, lo, hi in \
-                parts.tolist():
-            stats._round_parts.append(rounds)
-            stats.host_syncs += syncs
-            stats.fused_rounds += fused
-            stats.operand_bytes += lo + (hi << 31)
-            stats.corridor_active += n_active
-            stats.corridor_total += v_total
-            if compacted:
-                stats.compacted_chunks += 1
-            else:
-                stats.full_chunks += 1
+        for (rounds, syncs, n_active, compacted, fused, lo, hi), w in zip(
+                parts.tolist(), wait_s):
+            stats.add_chunk(rounds, syncs, w, n_active, v_n,
+                            bool(compacted), fused, lo + (hi << 31))
     return answers
 
 
@@ -1493,70 +1503,58 @@ def _count_forward(su, sv, req_labels, forb_raw_w, full_mask, sub_src,
 
 
 class _KindChunk(NamedTuple):
-    """Host-side operands of one compacted (or full-graph) DP chunk."""
-    v_p: int                    # padded vertex bucket
-    su: np.ndarray              # renumbered sources int32 [J]
-    sv: np.ndarray              # renumbered targets int32 [J]
+    """Operands of one lane-DP chunk: its ``Subgraph``, the jobs'
+    endpoints in its numbering on the device, and its edges on the host,
+    padded onto the bucket grid."""
+    sub: Subgraph
+    su: torch.Tensor            # renumbered sources int64 [J]
+    sv: torch.Tensor            # renumbered targets int64 [J]
     src: np.ndarray             # edge sources int32 [E'] (bucket-padded)
     dst: np.ndarray             # edge targets int32 [E']
     lab: np.ndarray             # edge labels int32 [E']
     evalid: np.ndarray          # bool [E'], False on padding rows
-    sub_ids: np.ndarray | None  # local -> original vertex ids (None=full)
-    n_sub: int                  # |V'| before padding
+
+    @property
+    def v_p(self) -> int:
+        return self.sub.v_p
+
+    @property
+    def stack_edges(self):
+        """The edges ``_class_stacks`` packs: the subgraph's own, never
+        the padding rows (in an edgeless corridor those make up 0 -> 0);
+        None for a full-graph chunk, whose stacks come from the engine's
+        LRU."""
+        sub = self.sub
+        return None if sub.sub_ids is None else (sub.src, sub.dst, sub.lab)
+
+    def edges_on_device(self):
+        """``(src, dst, lab, evalid)`` on the chunk's device, in the lane
+        cores' argument order."""
+        dev = self.su.device
+        return (*(_to_long(a, dev) for a in (self.src, self.dst, self.lab)),
+                torch.from_numpy(self.evalid).to(dev))
 
 
-def _chunk_edges(ch: _KindChunk):
-    """A compacted chunk's edge lists for ``_class_stacks``; None for a
-    full-graph chunk, whose stacks come from the engine's LRU."""
-    return None if ch.sub_ids is None else (ch.src, ch.dst, ch.lab)
-
-
-def _kind_chunk(index: TDRIndex, ex: ExactExecutor, plan: QueryPlan,
-                pd: PlanDevice, jobs: np.ndarray,
-                exact_mode: str) -> _KindChunk:
-    """Corridor-compact one job chunk for the lane DPs (the probe and
-    bucket discipline of ``ExactExecutor.run_chunk``, but edge padding
-    rows are masked through ``evalid`` instead of relying on
-    idempotence)."""
-    g = index.graph
-    v_n = g.n_vertices
-    compact = exact_mode in ("auto", "compact")
-    if compact:
-        member = ex.corridor_members(pd, jobs)
-        active = member.any(axis=0)
-        n_sub = int(active.sum())
-        if (exact_mode == "auto"
-                and graph_mod.pad_bucket(max(n_sub, 1), lo=32) >= v_n):
-            compact = False
-    if compact:
-        sub_ids, renum, s, d, l = graph_mod.induced_edges(
-            g, active, src=ex.src_np)
-        su = renum[plan.u[jobs]].astype(np.int32)
-        sv = renum[plan.v[jobs]].astype(np.int32)
-        v_p = graph_mod.pad_bucket(max(n_sub, 1), lo=32)
-    else:
-        sub_ids = None
-        n_sub = v_p = v_n
-        s, d, l = ex.src_np, ex.dst_np, ex.lab_np
-        su = plan.u[jobs].astype(np.int32)
-        sv = plan.v[jobs].astype(np.int32)
-    e_real = int(s.shape[0])
+def _kind_chunk(ex: ExactExecutor, plan: QueryPlan, pd: PlanDevice,
+                jobs: np.ndarray, exact_mode: str) -> _KindChunk:
+    """One job chunk's graph for the lane DPs (``ExactExecutor.subgraph``
+    over the chunk's corridor, or the full graph in "full" mode), its
+    edge padding rows masked through ``evalid`` instead of relying on
+    idempotence."""
+    active = None
+    if exact_mode != "full":
+        active = ex.corridor_members(pd, jobs).any(axis=0)
+    sub = ex.subgraph(active, exact_mode)
+    e_real = int(sub.src.shape[0])
     e_p = graph_mod.pad_bucket(max(e_real, 1), lo=32)
-    evalid = np.zeros(e_p, dtype=bool)
-    evalid[:e_real] = True
-    if e_p > e_real:
-        rep = e_p - e_real
-        if e_real:
-            s = np.concatenate([s, np.repeat(s[:1], rep)])
-            d = np.concatenate([d, np.repeat(d[:1], rep)])
-            l = np.concatenate([l, np.repeat(l[:1], rep)])
-        else:   # corridor holds no edges: the DP sees a masked bucket
-            s = np.zeros(e_p, np.int32)
-            d = np.zeros(e_p, np.int32)
-            l = np.zeros(e_p, np.int32)
-    return _KindChunk(v_p, su, sv, np.ascontiguousarray(s),
-                      np.ascontiguousarray(d), np.ascontiguousarray(l),
-                      evalid, sub_ids, n_sub)
+    evalid = np.arange(e_p) < e_real
+    if e_real:      # padding rows repeat the first edge
+        edges = (np.ascontiguousarray(_pad_first(a, e_p))
+                 for a in (sub.src, sub.dst, sub.lab))
+    else:           # corridor holds no edges: the DP sees a masked bucket
+        edges = (np.zeros(e_p, np.int32) for _ in range(3))
+    return _KindChunk(sub, *sub.endpoints(plan, jobs, ex.index.device),
+                      *edges, evalid)
 
 
 def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
@@ -1572,16 +1570,7 @@ def _kind_setup(index: TDRIndex, queries, *, max_m: int, backend,
     eng = index.engine(backend, engine_config)
     ex = _executor(index, eng)
     m_eff, n_states = ex.eff_states(plan, np.arange(plan.n_jobs), pin_m)
-    if n_states > 32:
-        raise ValueError(
-            f"max_m={m_eff} needs {n_states} subset states; the lane "
-            "executor holds at most 32 (max_m <= 5)")
-    dev = index.device
-    pd = PlanDevice(_to_long(plan.u, dev), _to_long(plan.v, dev),
-                    _to_long(plan.req_labels, dev),
-                    bitset.np_to_words(plan.forb_raw_w, dev),
-                    torch.from_numpy(plan.full_mask).to(dev))
-    return plan, eng, ex, m_eff, n_states, pd
+    return plan, eng, ex, m_eff, n_states, PlanDevice.of(plan, index.device)
 
 
 def dist_batch(index: TDRIndex,
@@ -1616,44 +1605,29 @@ def dist_batch(index: TDRIndex,
         out = np.full(plan.n_queries, -1, np.int64)
         if plan.n_jobs == 0:
             return out
-        dev = index.device
         best_j = np.full(plan.n_jobs, _DBIG, np.int64)
-        for c0 in range(0, plan.n_jobs, exact_chunk):
-            jobs = np.arange(c0, min(c0 + exact_chunk, plan.n_jobs))
-            real_n = len(jobs)
-            if real_n < exact_chunk:   # pad the chunk with its first job
-                jobs = np.concatenate(
-                    [jobs, np.full(exact_chunk - real_n, jobs[0])])
-            ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+        for _, jobs, real_n in _chunks(np.arange(plan.n_jobs), exact_chunk):
+            ch = _kind_chunk(ex, plan, pd, jobs, exact_mode)
             max_rounds = ch.v_p * n_states + 1
             it_cap = max_rounds if k is None else max(-(-int(k) // 2), 0)
-            jobs_t = _to_long(jobs, dev)
-            req = pd.req_labels[jobs_t][:, :m_eff]
-            frw = pd.forb_raw_w[jobs_t]
-            fm = pd.full_mask[jobs_t]
-            su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
+            req, frw, fm = pd.rows(jobs, m_eff)
             stacks = None
             if eng.backend == "matmul":
                 stacks = _class_stacks(
                     eng, _pinned(ex.special_labels(plan, jobs),
                                  special_labels),
-                    ch.v_p, _chunk_edges(ch))
+                    ch.v_p, ch.stack_edges)
             if stacks is not None:
                 best, rounds, syncs = _dist_bidi_matmul(
-                    su, sv, req, frw, fm, *stacks, it_cap, n_states, m_eff,
-                    max_rounds)
+                    ch.su, ch.sv, req, frw, fm, *stacks, it_cap, n_states,
+                    m_eff, max_rounds)
             else:
                 best, rounds, syncs = _dist_bidi(
-                    su, sv, req, frw, fm, _to_long(ch.src, dev),
-                    _to_long(ch.dst, dev), _to_long(ch.lab, dev),
-                    torch.from_numpy(ch.evalid).to(dev), it_cap, ch.v_p,
-                    n_states, m_eff, max_rounds)
+                    ch.su, ch.sv, req, frw, fm, *ch.edges_on_device(),
+                    it_cap, ch.v_p, n_states, m_eff, max_rounds)
             best_j[jobs[:real_n]] = best.cpu().numpy()[:real_n]
-            stats._round_parts.append(rounds)
-            stats.host_syncs += syncs.n
-            stats.sync_wait_s += syncs.wait_s
-            stats.corridor_active += ch.n_sub
-            stats.corridor_total += index.graph.n_vertices
+            stats.add_chunk(rounds, syncs.n, syncs.wait_s, ch.sub.n_sub,
+                            index.graph.n_vertices)
         bq = np.full(plan.n_queries, _DBIG, np.int64)
         np.minimum.at(bq, plan.qid, best_j)
         reach = bq < _DBIG
@@ -1691,18 +1665,14 @@ def witness(index: TDRIndex, u: int, v: int, p: pat.Pattern,
         what="witness", exact_mode=exact_mode, pin_m=pin_m)
     if plan.n_jobs == 0:
         return None
-    dev = index.device
-    jobs = np.arange(plan.n_jobs)
-    ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+    ch = _kind_chunk(ex, plan, pd, np.arange(plan.n_jobs), exact_mode)
     max_rounds = ch.v_p * n_states + 1
-    src_t, dst_t = _to_long(ch.src, dev), _to_long(ch.dst, dev)
-    lab_t = _to_long(ch.lab, dev)
-    ev_t = torch.from_numpy(ch.evalid).to(dev)
+    edges = ch.edges_on_device()
     best_t, best_len, planes = -1, None, []
     for t in range(plan.n_jobs):
         dplane, par, _ = _dist_forward_parents(
             int(ch.su[t]), pd.req_labels[t, :m_eff], pd.forb_raw_w[t],
-            src_t, dst_t, lab_t, ev_t, ch.v_p, n_states, m_eff, max_rounds)
+            *edges, ch.v_p, n_states, m_eff, max_rounds)
         planes.append((dplane, par))
         d_t = int(dplane[int(ch.sv[t]), int(plan.full_mask[t])])
         if d_t < DIST_INF and (best_len is None or d_t < best_len):
@@ -1738,8 +1708,8 @@ def witness(index: TDRIndex, u: int, v: int, p: pat.Pattern,
         path.append((px, x, lx))
         x, state = px, nxt
     path.reverse()
-    if ch.sub_ids is not None:   # map compacted ids back to the graph
-        path = [(int(ch.sub_ids[a]), int(ch.sub_ids[b]), l)
+    if ch.sub.sub_ids is not None:   # map compacted ids back to the graph
+        path = [(int(ch.sub.sub_ids[a]), int(ch.sub.sub_ids[b]), l)
                 for (a, b, l) in path]
     if len(path) != best_len or not dfs_mod.verify_witness(
             index.graph, u, v, p, path):
@@ -1770,19 +1740,14 @@ def count_routes(index: TDRIndex, u: int, v: int, p: pat.Pattern,
         index, [(u, v, p)], max_m=max_m, backend=backend,
         engine_config=engine_config, stats=stats, device=device,
         what="count", exact_mode=exact_mode, pin_m=pin_m)
-    dev = index.device
-    jobs = np.arange(plan.n_jobs)
-    ch = _kind_chunk(index, ex, plan, pd, jobs, exact_mode)
+    ch = _kind_chunk(ex, plan, pd, np.arange(plan.n_jobs), exact_mode)
     if ch.src.shape[0] * cap >= 1 << 32:
         raise ValueError(
             f"cap={cap} with {ch.src.shape[0]} edges could wrap the "
             "uint32 count accumulator; lower the cap")
     total = _count_forward(
-        _to_long(ch.su, dev), _to_long(ch.sv, dev),
-        pd.req_labels[:, :m_eff], pd.forb_raw_w, pd.full_mask,
-        _to_long(ch.src, dev), _to_long(ch.dst, dev), _to_long(ch.lab, dev),
-        torch.from_numpy(ch.evalid).to(dev), int(hops), ch.v_p, n_states,
-        m_eff, int(cap))
+        ch.su, ch.sv, pd.req_labels[:, :m_eff], pd.forb_raw_w, pd.full_mask,
+        *ch.edges_on_device(), int(hops), ch.v_p, n_states, m_eff, int(cap))
     return int(total[0])
 
 
@@ -2084,19 +2049,11 @@ def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
         dev = index.device
         ex = _executor(index, eng)
         jobs_all = np.asarray([pos_of[i] for i in hard_ix], dtype=np.int64)
-        pd = PlanDevice(_to_long(aplan.u, dev), _to_long(aplan.v, dev),
-                        _to_long(aplan.req_labels, dev),
-                        bitset.np_to_words(aplan.forb_raw_w, dev),
-                        torch.from_numpy(aplan.full_mask).to(dev))
+        pd = PlanDevice.of(aplan, dev)
         n_labels = index.graph.n_labels
         done_all = np.zeros(len(jobs_all), dtype=bool)
-        for c0 in range(0, len(jobs_all), exact_chunk):
-            jobs = jobs_all[c0:c0 + exact_chunk]
-            real_n = len(jobs)
-            if real_n < exact_chunk:    # pad the chunk with its first job
-                jobs = np.concatenate(
-                    [jobs, np.full(exact_chunk - real_n, jobs[0])])
-            ch = _kind_chunk(index, ex, aplan, pd, jobs, exact_mode)
+        for c0, jobs, real_n in _chunks(jobs_all, exact_chunk):
+            ch = _kind_chunk(ex, aplan, pd, jobs, exact_mode)
             qrows = [rows[hard_ix[c0 + (j if j < real_n else 0)]]
                      for j in range(len(jobs))]
             q_u = 4
@@ -2110,11 +2067,8 @@ def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
                                        dev)
             accept = torch.tensor([_i32(rw.accept) for rw in qrows],
                                   dtype=torch.int32, device=dev)
-            su, sv = _to_long(ch.su, dev), _to_long(ch.sv, dev)
             done = None
-            # the matmul route needs a real edge in the corridor: with none,
-            # the packed padding edge 0->0 would make up a letter
-            if eng.backend == "matmul" and ch.evalid.any():
+            if eng.backend == "matmul":
                 special = set()
                 for rw in qrows:
                     special.update(rw.alpha)
@@ -2122,39 +2076,24 @@ def rpq_batch(index: TDRIndex, queries: Sequence[tuple], *,
                     special.update(int(l) for l in special_labels
                                    if 0 <= int(l) < n_labels)
                 stacks = _class_stacks(eng, tuple(sorted(special)), ch.v_p,
-                                       _chunk_edges(ch))
+                                       ch.stack_edges)
                 if stacks is not None:
                     done, rounds, syncs = _rpq_bidi_matmul(
-                        su, sv, tabs, rtabs, accept, *stacks,
+                        ch.su, ch.sv, tabs, rtabs, accept, *stacks,
                         max_rounds=max_rounds, q_u=q_u)
             if done is None:
-                # padded-incidence gathers over the real edges only; degree
-                # skew past the cap falls back to masked segment-ORs
-                e_real = int(ch.evalid.sum())
-                e_p = int(ch.src.shape[0])
-                ids_in = ids_out = None
-                if e_real:
-                    plan_in = graph_mod.incidence_plan(
-                        ch.dst[:e_real], ch.v_p, e_p)
-                    plan_out = graph_mod.incidence_plan(
-                        ch.src[:e_real], ch.v_p, e_p)
-                    gb = sum(a.size for a in plan_in + plan_out) * \
-                        len(jobs) * 4
-                    if gb <= ExactExecutor.GATHER_BYTES_CAP:
-                        ids_in = tuple(_to_long(a, dev) for a in plan_in)
-                        ids_out = tuple(_to_long(a, dev) for a in plan_out)
+                # padded-incidence gathers over the real edges only (the
+                # padding rows' ids are never referenced); degree skew past
+                # the cap falls back to masked segment-ORs
                 done, rounds, syncs = _rpq_bidi(
-                    su, sv, tabs, rtabs, accept, _to_long(ch.src, dev),
-                    _to_long(ch.dst, dev), _to_long(ch.lab, dev),
-                    torch.from_numpy(ch.evalid).to(dev), ids_in, ids_out,
+                    ch.su, ch.sv, tabs, rtabs, accept,
+                    *ch.edges_on_device(),
+                    *ex.incidence(ch.sub, len(ch.src), len(jobs)),
                     v_p=ch.v_p, max_rounds=max_rounds,
                     chunk_words=eng.config.chunk_words, q_u=q_u)
             done_all[c0:c0 + real_n] = done.cpu().numpy()[:real_n]
-            stats._round_parts.append(rounds)
-            stats.host_syncs += syncs.n
-            stats.sync_wait_s += syncs.wait_s
-            stats.corridor_active += ch.n_sub
-            stats.corridor_total += index.graph.n_vertices
+            stats.add_chunk(rounds, syncs.n, syncs.wait_s, ch.sub.n_sub,
+                            index.graph.n_vertices)
     out[hard_ix] = done_all
     stats.exact_jobs += len(jobs_all)
     return out

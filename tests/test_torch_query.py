@@ -11,7 +11,7 @@ import torch
 from repro.core import (dfs_baseline as RD, graph as RG, lcr as RL,
                         pattern as RP, tdr_build as RB, tdr_query as RQ)
 from repro_torch import (bitset, convert, dfs_baseline, engine, graph as G,
-                         lcr, pattern, tdr_build, tdr_query)
+                         lcr, pattern, rpq, tdr_build, tdr_query)
 from repro_torch.kernels import ops
 
 CFG = dict(vtx_bits=64, g_max=4, k=3)
@@ -335,6 +335,47 @@ def test_operand_bytes_count_each_active_direction(monkeypatch):
     assert sum(n > 0 for n, _, _ in seen) == st.exact_rounds > 0
     assert st.operand_bytes == list_bytes * sum(n for n, _, _ in seen)
     assert any(n == 2 for n, _, _ in seen)
+
+
+RPQ_TEXTS = ("l0 . l1", "l1 . (l0 | l2)*", "(l0 . l1)+ . l3", "l2 . l2?",
+             "l3* . l0 . l1*")
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("exact_mode", ["compact", "full"])
+@pytest.mark.parametrize("kind", ["bool", "rpq"])
+def test_gather_cap_route_keeps_answers_and_rounds(kind, exact_mode,
+                                                   monkeypatch):
+    """Past ``ExactExecutor.GATHER_BYTES_CAP`` (here 0) the segment rounds
+    of the boolean and the RPQ cores reduce by packed segment-ORs, not
+    over the padded incidence: answers and ``exact_rounds`` equal the
+    uncapped run's and the oracle's.  Chunks of 8 jobs pad a tail."""
+    rg, ridx, g, idx, specs, want = _case("er", 45, 2.3, 3, 24)
+    if kind == "bool":
+        qs, run = _patterns(pattern, specs, 4), tdr_query.answer_batch
+    else:
+        qs = [(u, v, rpq.parse(RPQ_TEXTS[i % len(RPQ_TEXTS)]))
+              for i, (u, v, _, _) in enumerate(specs)]
+        want = [dfs_baseline.answer_rpq(g, u, v, r) for u, v, r in qs]
+        run = tdr_query.rpq_batch
+    real, capped = tdr_query._reduce_edges, []
+
+    def spy(val, scatter_idx, ids, *rest):
+        capped.append(ids is None)
+        return real(val, scatter_idx, ids, *rest)
+
+    monkeypatch.setattr(tdr_query, "_reduce_edges", spy)
+    rounds = []
+    for cap in (tdr_query.ExactExecutor.GATHER_BYTES_CAP, 0):
+        monkeypatch.setattr(tdr_query.ExactExecutor, "GATHER_BYTES_CAP", cap)
+        capped.clear()
+        st = tdr_query.QueryStats()
+        got = run(idx, qs, backend="segment", exact_mode=exact_mode,
+                  exact_chunk=8, stats=st, device="cpu")
+        assert got.tolist() == want, cap
+        assert set(capped) == {cap == 0}, cap
+        rounds.append(st.exact_rounds)
+    assert rounds[0] == rounds[1] > 0
 
 
 def _ref_state(ridx) -> dict:

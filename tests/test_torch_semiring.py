@@ -367,6 +367,22 @@ def test_dist_edge_cases():
     assert tdr_query.dist_batch(idx, [], device="cpu").tolist() == []
 
 
+@pytest.mark.parametrize("exact_mode", ["auto", "compact", "full"])
+@pytest.mark.parametrize("backend", list(BACKENDS))
+def test_dist_edgeless_corridor_makes_up_no_edge(backend, exact_mode):
+    """A self-query needing a label at a vertex whose corridor holds no
+    edge: a compacted chunk pads its edge rows with a masked 0 -> 0, which
+    must reach neither the lane core nor a class stack.  Every backend and
+    mode answers the oracle's -1."""
+    g = G.Graph.from_edges(4, 2, [(1, 2, 0), (2, 3, 1)])
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(vtx_bits=32),
+                                device="cpu")
+    p = pattern.all_of([0])
+    assert dfs_baseline.shortest_pcr(g, 0, 0, p) == -1
+    assert tdr_query.dist(idx, 0, 0, p, backend=backend,
+                          exact_mode=exact_mode, device="cpu") == -1
+
+
 def test_dist_dense_cap_on_the_cpu_warns_and_keeps_answers():
     """On the CPU a class stack over ``max_dense_bytes`` warns and the
     chunk runs the segment core, with the same answers and rounds."""
