@@ -25,14 +25,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    fewest live k-blocks (recorded by a spy on ``ops.frontier_step_sparse``
    during the main path's build), each also against dense
    ``bitset_matmul`` on the same adjacency; ``class_round`` on the
-   operands (each direction's edge lists) of one mid-chunk round of the
-   main path's ``answer_batch`` (4 subset states) and of ``answer_plan``
-   with ``pin_m=4`` on the same queries (16 states), each recorded by a
-   spy on ``ops.class_round``, also against the dense composition it
-   replaced on the per-label stacks of the same edges (one
-   ``bitset_matmul`` per label and direction and the round's torch ops),
-   whose device and wall times are printed beside
-   it.  Times are medians of CUDA
+   operands (each direction's edge lists) of one mid-group round of the
+   main path's ``answer_batch`` (its full-graph chunks side by side in
+   one lockstep group, 4 subset states) and of ``answer_plan`` with
+   ``pin_m=4`` on the same queries (16 states), each recorded by a spy on
+   ``ops.class_round``, also against the dense composition it replaced
+   on the per-label stacks of the same edges (one ``bitset_matmul`` per
+   label and direction and the round's torch ops), whose device and wall
+   times are printed beside it, and against the group's chunks launched
+   one at a time, both timed.  Times are medians of CUDA
    event timings after a warm-up.
 3. Cross-checks: the same graph built and answered with
    ``backend="segment"`` (plain torch, no kernels) gives identical planes,
@@ -269,7 +270,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet non-tensor 32-bit rate
 KERNEL_REPS = 20
 PLAIN_REPS = 5
-CLASS_ROUND_CALL = 5   # call 0 is a chunk's first meet; 1.. its rounds
+CLASS_ROUND_CALL = 5   # call 0 is a group's first meet; 1.. its rounds
 SLEEP_CYCLES = 20_000_000      # ~10 ms of device sleep per timed call
 PLANES = ("h_vtx", "h_lab", "v_vtx", "v_lab", "n_out", "n_in")
 # every array an index stores: the planes and the maintenance state
@@ -2620,10 +2621,16 @@ def eager_class_round(torch, engine, ref, bitset, args, done, stacks):
     """The round as the loop ran it before ``class_round``: one
     ``bitset_matmul`` launch per label class and direction on the dense
     class ``stacks`` of the round's edges, the subset transitions, the
-    mask, the new bits and the meet in torch ops, and the stack of the
-    loop's three flags; ``done`` is the unpacked ``done_w``."""
-    _, _, allow, has, sh, sup_need, cor_w, f, b, _, cf, cb = args
+    mask, the new bits (on the passes whose flag and gate run the
+    direction) and the meet in torch ops, and the stack of the loop's
+    three flags; ``done`` is the unpacked done words of ``state``."""
+    _, _, allow, has, sh, sup_need, cor_w, f, b, state, cf, cb = args
     adj_rev, adj_fwd = stacks
+    q = f.shape[1]
+
+    def run(flags, gate):
+        on = (flags != 0).repeat_interleave(32)[:q] & bool(gate)
+        return bitset.full_words_where(on)[None, :]
 
     def push(adj, x):
         upd = torch.zeros_like(x)
@@ -2634,9 +2641,11 @@ def eager_class_round(torch, engine, ref, bitset, args, done, stacks):
         return upd
 
     mask = cor_w & bitset.full_words_where(~done)[None, :]
-    new_f = push(adj_rev, f) & mask & ~f if cf else torch.zeros_like(f)
+    new_f = push(adj_rev, f) & mask & ~f & run(state[0], cf) if cf \
+        else torch.zeros_like(f)
     f = f | new_f
-    new_b = push(adj_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
+    new_b = push(adj_fwd, b) & mask & ~b & run(state[1], cb) if cb \
+        else torch.zeros_like(b)
     b = b | new_b
     done = done | ref.subset_meet(f, b, sup_need)
     return f, b, torch.stack(
@@ -2655,30 +2664,74 @@ def label_stacks(bitset, lists):
     return bitset.np_to_words(out, lists.row_ptr.device)
 
 
+def class_round_split(torch, ops, args, width: int):
+    """The captured round of a lockstep group (``args``: its chunks side
+    by side, ``width`` columns each, one 32-column pass apart) launched
+    again one chunk at a time on each chunk's columns and passes ->
+    ``(largest word difference from the grouped launch over f_next,
+    b_next and the state, the grouped launch's ms, the chunks' launches'
+    ms)``, each a median between CUDA events behind a sleep."""
+    lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f, b, state, \
+        cf, cb = args
+    stride = -(-width // 32) * 32
+    subs = []
+    for c0 in range(0, f.shape[1], stride):
+        cols = slice(c0, c0 + width)
+        p = slice(c0 // 32, c0 // 32 + -(-width // 32))
+        subs.append((lists_rev, lists_fwd) + tuple(
+            t[:, cols].contiguous() for t in (allow, has, sh, sup_need,
+                                              cor_w, f, b))
+            + (state[:, p].contiguous(), cf, cb))
+    got = ops.class_round(*args)
+    each = [ops.class_round(*sub) for sub in subs]
+    err = 0
+    for k, (sub, out) in enumerate(zip(subs, each)):
+        c0 = k * stride
+        err = max(err, words_err(torch, got[0][:, c0:c0 + width], out[0]),
+                  words_err(torch, got[1][:, c0:c0 + width], out[1]),
+                  words_err(torch, got[2][:, c0 // 32:c0 // 32
+                                          + out[2].shape[1]], out[2]))
+    group_ms = time_ms(torch, lambda: ops.class_round(*args), KERNEL_REPS)
+    each_ms = time_ms(torch, lambda: [ops.class_round(*sub)
+                                      for sub in subs], KERNEL_REPS)
+    print(f"class_round group of {len(subs)} x {width}: against its chunks "
+          f"launched one at a time max_abs_err={err}; one grouped launch "
+          f"{group_ms:.4f} ms, {len(subs)} launches {each_ms:.4f} ms")
+    return err, group_ms, each_ms
+
+
 def class_round_row(torch, engine, ops, ref, bitset, record, args,
                     n_launches=None) -> bool:
     """``class_round`` on one captured round's operands (each direction's
-    edge lists) against ``ref.class_round_ref`` on them (tolerance 0 in
-    ``f_next``, ``b_next`` and the state words) and against the eager
+    edge lists; since the main path groups its full-graph chunks, a
+    lockstep group's) against ``ref.class_round_ref`` on them (tolerance
+    0 in ``f_next``, ``b_next`` and the state words), against the eager
     dense round it replaced on the per-label stacks of the same edges
-    (``f_next``, ``b_next`` and the two changed flags), with its row of
-    the ``kernels`` line; then the kernel's profiled time and the eager
-    round's device time (profiler), wall time between CUDA events with no
-    sleep ahead (its launches included) and device kernels a round."""
-    lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f, b, done_w = \
+    (``f_next``, ``b_next`` and the two changed flags) and, for a group,
+    against its chunks launched one at a time (``class_round_split``),
+    with its row of the ``kernels`` line; then the kernel's profiled time
+    and the eager round's device time (profiler), wall time between CUDA
+    events with no sleep ahead (its launches included) and device
+    kernels a round."""
+    lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f, b, state = \
         args[:10]
     v_p, q = f.shape
     n_states = sup_need.shape[0]
-    name = f"class_round[S={n_states}]"
-    done = bitset.unpack_bits(done_w, q)
+    n_chunks = -(-q // EXACT_CHUNK)
+    name = f"class_round[S={n_states},{n_chunks}x{EXACT_CHUNK}]"
+    done = bitset.unpack_bits(state[2], q)
     stacks = tuple(label_stacks(bitset, lists)
                    for lists in (lists_rev, lists_fwd))
     got = ops.class_round(*args)
     want = ref.class_round_ref(*args)
     eager = eager_class_round(torch, engine, ref, bitset, args, done, stacks)
+    split_err = 0
+    if n_chunks > 1:
+        split_err, _, _ = class_round_split(torch, ops, args, EXACT_CHUNK)
     err = max([words_err(torch, g, w) for g, w in zip(got, want)]
               + [words_err(torch, g, w) for g, w in zip(got[:2], eager[:2])]
-              + [words_err(torch, got[2][:2] != 0, eager[2][:2])])
+              + [words_err(torch, (got[2][:2] != 0).any(dim=1),
+                           eager[2][:2]), split_err])
     n_edges = [int(lists.cols.numel()) for lists in (lists_rev, lists_fwd)]
     set_bits = sum(int(bitset.popcount(a.reshape(-1, 1)).sum())
                    for stack in stacks for a in stack)

@@ -12,15 +12,24 @@
 //     done'[q] = done[q] | EXISTS i, s1 in f_next[i, q]:
 //                          b_next[i, q] & sup_need[s1, q] != 0
 //
-// and two flags, whether each direction added a bit.  T_l,q is the subset
-// transition of label l for query q: states that hold the label's
-// required bit stay, the rest move up by sh = 2^i
+// and, per 32-column pass, whether each direction added a bit.  T_l,q is
+// the subset transition of label l for query q: states that hold the
+// label's required bit stay, the rest move up by sh = 2^i
 // ((y & has) | ((y & ~has) << sh)); a label no query of the chunk names
 // has allow = ~0, has = ~0, sh = 0.  The transition and the allow mask
 // distribute over OR, so each edge contributes T_l(X[j] & allow[l]) on
 // its own: the dense form's per-class product y_c = OR_j A_c[i, j] & X[j]
-// needs no sort by label here.  live[q] is "query q not done"; a
-// direction whose last round added nothing is copied and reads no list.
+// needs no sort by label here.  live[q] is "query q not done".
+//
+// Columns are independent, so several chunks of queries on one graph run
+// in one launch side by side, each on whole passes (a lockstep group).
+// The round state is per pass: `state_prev` [3, passes] holds the last
+// round's forward flags, backward flags and done words.  A pass runs a
+// direction when the launch's gate (cf / cb) is on and its flag is set;
+// a direction whose last round added nothing in a pass is at its
+// fixpoint there, and the pass copies it and reads no list.  The new
+// state holds, per pass, whether each direction added a bit (or, with
+// the gate off, the flag it was given), then the done words.
 //
 // Operand: each direction's edges as per-row lists
 // (repro_torch.compressed.EdgeLists): row_ptr int32 [V'+1], and the
@@ -36,13 +45,13 @@
 //
 // Bound on this card: the bytes the round needs: both directions' lists
 // (at V' = 32768, ~131,071 edges a direction: 2.4 MB), f, b and the
-// corridor in, f_next and b_next out (4 MB each at Q = 32), ~23 MB a
-// round, 0.007 ms at 3.35 TB/s.  The frontier rows an edge gathers come
-// from L2 (a 4 MB frontier fits its 50 MB), so the time is the latency
-// of a few dependent reads a warp, hidden by the warps in flight.
+// corridor in, f_next and b_next out (4 MB each a pass), ~23 MB a pass
+// and round, 0.007 ms at 3.35 TB/s.  The frontier rows an edge gathers
+// come from L2 (a 4 MB frontier pass fits its 50 MB), so the time is the
+// latency of a few dependent reads a warp, hidden by the warps in flight.
 //
 // Design: one warp per (row i, 32-column pass of Q): lane = query column.
-// For each active direction the warp reads up to 32 of the row's entries
+// For each running direction the warp reads up to 32 of the row's entries
 // (columns and labels) in two coalesced loads, broadcasts each by
 // shuffle, and every lane gathers its word of the edge's frontier row (a
 // 128-byte line for the warp), kUnroll gathers in flight; the label's
@@ -50,12 +59,11 @@
 // reads the same L x 3 lines, which stay in L1).  A warp whose row has
 // no live, unreached corridor bit in a direction skips that direction's
 // list: its new bits are 0 whatever the row holds.  The meet runs on the
-// new words in registers; ballots give the pass's done bits and the two
-// changed flags, which one lane ORs into `state` with an atomic.  Each
-// round reads only the last round's buffers and writes fresh ones, so no
-// warp sees another's update and rounds are bit-identical to the eager
-// composition.  `state` ([2 + passes] words:
-// changed_f, changed_b, then the done words) must be zero at launch.  The
+// new words in registers; ballots give the pass's done bits and its two
+// flags, which one lane ORs into `state` with an atomic.  Each round
+// reads only the last round's buffers and writes fresh ones, so no warp
+// sees another's update and rounds are bit-identical to the eager
+// composition.  `state` ([3, passes] words) must be zero at launch.  The
 // kernel allocates nothing and runs on the caller's stream.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,7 +131,7 @@ class_round_kernel(const int* __restrict__ ptr_rev,
                    const uint32_t* __restrict__ sh,
                    const uint32_t* __restrict__ sup_need,
                    const uint32_t* __restrict__ cor,
-                   const uint32_t* __restrict__ done_prev,
+                   const uint32_t* __restrict__ state_prev,
                    uint32_t* __restrict__ f_next,
                    uint32_t* __restrict__ b_next,
                    uint32_t* __restrict__ state,
@@ -132,20 +140,25 @@ class_round_kernel(const int* __restrict__ ptr_rev,
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= v_p) return;  // warp-uniform: the ballots below stay full-warp
   const int pass = blockIdx.y;
+  const int n_pass = gridDim.y;
   const int col = pass * 32 + lane;
   const bool has_col = col < q;
   const long long e = (long long)row * q + col;
-  const uint32_t done_w = __ldg(done_prev + pass);
+  const uint32_t flag_f = __ldg(state_prev + pass);
+  const uint32_t flag_b = __ldg(state_prev + n_pass + pass);
+  const uint32_t done_w = __ldg(state_prev + 2 * n_pass + pass);
+  const bool run_f = cf && flag_f;
+  const bool run_b = cb && flag_b;
   const bool live = has_col && !((done_w >> lane) & 1u);
   const uint32_t mask = live ? __ldg(cor + e) : 0u;
   uint32_t fv = has_col ? __ldg(f + e) : 0u;
   uint32_t bv = has_col ? __ldg(b + e) : 0u;
 
   uint32_t new_f = 0u, new_b = 0u;
-  if (cf && __any_sync(kFull, (mask & ~fv) != 0u))
+  if (run_f && __any_sync(kFull, (mask & ~fv) != 0u))
     new_f = list_push(ptr_rev, col_rev, lab_rev, f, allow, has, sh, row, q,
                       col, has_col, lane) & mask & ~fv;
-  if (cb && __any_sync(kFull, (mask & ~bv) != 0u))
+  if (run_b && __any_sync(kFull, (mask & ~bv) != 0u))
     new_b = list_push(ptr_fwd, col_fwd, lab_fwd, b, allow, has, sh, row, q,
                       col, has_col, lane) & mask & ~bv;
   fv |= new_f;
@@ -173,10 +186,13 @@ class_round_kernel(const int* __restrict__ ptr_rev,
   const unsigned added_f = __ballot_sync(kFull, new_f != 0u);
   const unsigned added_b = __ballot_sync(kFull, new_b != 0u);
   if (lane == 0) {
+    // a gated-off direction keeps the flag it was given (row 0 writes it)
+    const bool out_f = cf ? added_f != 0u : (row == 0 && flag_f);
+    const bool out_b = cb ? added_b != 0u : (row == 0 && flag_b);
     const uint32_t done_or = hits | (row == 0 ? done_w : 0u);
-    if (done_or) atomicOr(state + 2 + pass, done_or);
-    if (added_f) atomicOr(state, 1u);
-    if (added_b) atomicOr(state + 1, 1u);
+    if (out_f) atomicOr(state + pass, 1u);
+    if (out_b) atomicOr(state + n_pass + pass, 1u);
+    if (done_or) atomicOr(state + 2 * n_pass + pass, done_or);
   }
 }
 
@@ -188,7 +204,7 @@ extern "C" int tdr_class_round(const void* ptr_rev, const void* col_rev,
                                const void* f, const void* b,
                                const void* allow, const void* has,
                                const void* sh, const void* sup_need,
-                               const void* cor, const void* done_prev,
+                               const void* cor, const void* state_prev,
                                void* f_next, void* b_next, void* state,
                                int v_p, int q, int s, int cf, int cb,
                                void* stream) {
@@ -202,7 +218,7 @@ extern "C" int tdr_class_round(const void* ptr_rev, const void* col_rev,
         (const uint32_t*)f, (const uint32_t*)b,
         (const uint32_t*)allow, (const uint32_t*)has, (const uint32_t*)sh,
         (const uint32_t*)sup_need, (const uint32_t*)cor,
-        (const uint32_t*)done_prev, (uint32_t*)f_next, (uint32_t*)b_next,
+        (const uint32_t*)state_prev, (uint32_t*)f_next, (uint32_t*)b_next,
         (uint32_t*)state, v_p, q, s, cf, cb);
   }
   return (int)cudaGetLastError();

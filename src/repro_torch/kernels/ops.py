@@ -31,16 +31,17 @@ def frontier_step(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def class_round(lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w, f,
-                b, done_w, cf: bool, cb: bool):
+                b, state, cf: bool, cb: bool):
     """One phase-2 boolean round of the bidirectional subset expansion on
-    each direction's per-row edge lists (``compressed.EdgeLists``)
-    -> ``(f_next, b_next, state)``; ``state`` is int32 ``[forward added,
-    backward added, done words...]`` (see ``ref.class_round_ref``)."""
+    each direction's per-row edge lists (``compressed.EdgeLists``) from
+    the last round's per-pass ``state`` -> ``(f_next, b_next, state)``;
+    ``state`` is int32 ``[3, passes]``: forward flags, backward flags,
+    done words (see ``ref.class_round_ref``)."""
     if f.is_cuda:
         return cuda_class_round(lists_rev, lists_fwd, allow, has, sh,
-                                sup_need, cor_w, f, b, done_w, cf, cb)
+                                sup_need, cor_w, f, b, state, cf, cb)
     return ref.class_round_ref(lists_rev, lists_fwd, allow, has, sh,
-                               sup_need, cor_w, f, b, done_w, cf, cb)
+                               sup_need, cor_w, f, b, state, cf, cb)
 
 
 def frontier_step_mxu(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

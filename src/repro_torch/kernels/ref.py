@@ -323,23 +323,41 @@ def edge_push_ref(lists, x, allow, has, sh):
 
 
 def class_round_ref(lists_rev, lists_fwd, allow, has, sh, sup_need, cor_w,
-                    f, b, done_w, cf: bool, cb: bool):
+                    f, b, state, cf: bool, cb: bool):
     """One phase-2 boolean round on the matmul backend (the ``class_round``
-    kernel): each active direction's ``edge_push_ref`` (the forward
+    kernel): each running direction's ``edge_push_ref`` (the forward
     frontier over the lists of edges into each row, the backward over
     those out of it), masked to the corridor and the unfinished columns,
-    adds its new bits; then ``subset_meet``.  ``done_w`` packs the
-    finished columns into words; returns ``(f_next, b_next, state)``,
-    ``state`` int32 [2 + ceil(Q/32)]: forward added, backward added (0/1),
-    then the done words."""
-    def push(lists, x):
-        return edge_push_ref(lists, x, allow, has, sh)
-
-    done = bitset.unpack_bits(done_w, f.shape[1])
+    adds its new bits; then ``subset_meet``.  ``state`` int32 ``[3,
+    ceil(Q/32)]`` is the last round's, per 32-column pass: forward flag,
+    backward flag (0/1), done word.  A pass runs a direction when the gate
+    ``cf`` / ``cb`` is on and its flag is set.  Returns ``(f_next, b_next,
+    state)``, the new state per pass: whether each direction added a bit
+    (with its gate off, the flag it was given), then the done words."""
+    q = f.shape[1]
+    n_pass = state.shape[1]
+    done = bitset.unpack_bits(state[2], q)
     mask = cor_w & bitset.full_words_where(~done)[None, :]
-    new_f = push(lists_rev, f) & mask & ~f if cf else torch.zeros_like(f)
-    new_b = push(lists_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
+
+    def push(lists, x, gate, flags):
+        # a pass's flag on each of its columns
+        run = (flags != 0).repeat_interleave(WORD)[:q] & gate
+        if not bool(run.any()):
+            return torch.zeros_like(x)
+        new = edge_push_ref(lists, x, allow, has, sh) & mask & ~x
+        return new & bitset.full_words_where(run)[None, :]
+
+    def added(new, gate, flags):
+        if not gate:
+            return (flags != 0).to(torch.int32)
+        cols = torch.zeros(n_pass * WORD, dtype=torch.bool, device=f.device)
+        cols[:q] = (new != 0).any(dim=0)
+        return cols.reshape(n_pass, WORD).any(dim=1).to(torch.int32)
+
+    new_f = push(lists_rev, f, cf, state[0])
+    new_b = push(lists_fwd, b, cb, state[1])
     f, b = f | new_f, b | new_b
     done = done | subset_meet(f, b, sup_need)
-    added = torch.stack([(new_f != 0).any(), (new_b != 0).any()])
-    return f, b, torch.cat([added.to(torch.int32), bitset.pack_bits(done)])
+    return f, b, torch.stack([added(new_f, cf, state[0]),
+                              added(new_b, cb, state[1]),
+                              bitset.pack_bits(done)])

@@ -26,8 +26,10 @@ some vertex holds forward state s₁ and backward state s₂ with
 ``s₁ | s₂ == full_mask``.  One round is, on the ``matmul`` backend, one
 ``class_round`` kernel launch over each direction's per-row edge lists
 (every edge's subset transition in both directions, the corridor mask
-and the meet); on ``segment``, a gather, a per-edge subset
-transition and an OR over padded incidence rows.
+and the meet), and a batch's full-graph chunks share it: they run side
+by side as one lockstep group, one launch and one host read a round,
+each chunk stopping on its own rule; on ``segment``, a gather, a
+per-edge subset transition and an OR over padded incidence rows.
 
 ``exact_mode="legacy"`` keeps the first phase-2 executor: one direction
 from ``u`` over the full graph until every target state is reached (on
@@ -170,15 +172,21 @@ class QueryStats:
     # bytes of edge lists (row pointers, columns and labels) the
     # ``class_round`` launches were given, per active direction
     operand_bytes: int = 0
+    # chunks that shared their ``class_round`` launches with another chunk
+    # (a lockstep group of full-graph chunks)
+    grouped_chunks: int = 0
     _round_parts: list = dataclasses.field(default_factory=list, repr=False)
 
     def add_chunk(self, rounds: int, syncs: int, wait_s: float,
                   n_active: int, v_total: int,
                   compacted: bool | None = None, fused_rounds: int = 0,
-                  operand_bytes: int = 0) -> None:
+                  operand_bytes: int = 0, grouped: bool = False) -> None:
         """Fold one phase-2 chunk's counters in.  ``compacted`` None (the
-        lane kinds) counts the chunk as neither compacted nor full."""
+        lane kinds) counts the chunk as neither compacted nor full.  A
+        lockstep group's syncs and operand bytes come in with its first
+        chunk."""
         self._round_parts.append(rounds)
+        self.grouped_chunks += grouped
         self.host_syncs += syncs
         self.sync_wait_s += wait_s
         self.corridor_active += n_active
@@ -493,11 +501,14 @@ def _bidi_loop(f0, b0, push_f, push_b, cor_w, meet, max_rounds: int):
     return done, rounds, syncs
 
 
-def _seed(idx, v_p: int, q_n: int, val=1):
+def _seed(idx, v_p: int, q_n: int, val=1, cols=None):
     """[V', Q] frontier holding ``val`` (default: subset state ∅) at row
-    idx[q] of column q; ``val`` is a scalar or an int32 [Q]."""
+    idx[k] of column ``cols[k]`` (default: column k), zero elsewhere;
+    ``val`` is a scalar or an int32 [Q]."""
     f0 = torch.zeros((v_p, q_n), dtype=torch.int32, device=idx.device)
-    f0[idx, torch.arange(q_n, device=idx.device)] = val
+    if cols is None:
+        cols = torch.arange(q_n, device=idx.device)
+    f0[idx, cols] = val
     return f0
 
 
@@ -548,49 +559,82 @@ def _bidi_segment_core(su, sv, req_labels, forb_raw_w, full_mask, cor_w,
         cor_w, lambda f, b: ref.subset_meet(f, b, sup_need), max_rounds)
 
 
+def _group_columns(n: int, width: int) -> np.ndarray:
+    """Columns of ``n`` chunks of ``width`` jobs laid side by side in one
+    lockstep group, each from the start of a 32-column pass -> int64
+    ``[n, width]``.  The columns past a chunk's width up to its next pass
+    (``width`` not a multiple of 32) belong to no chunk."""
+    stride = bitset.n_words(width) * bitset.WORD
+    return np.arange(n)[:, None] * stride + np.arange(width)[None, :]
+
+
 def _bidi_matmul_core(su, sv, lists_rev, lists_fwd, req_labels,
                       forb_raw_w, full_mask, cor_w, n_states: int,
-                      max_m: int, max_rounds: int):
-    """Matmul-backend bidirectional fixpoint on the (sub)graph's per-row
-    edge lists (the forward frontier reads the edges into each row), with
-    the transition operands ``[L, Q]`` of every label.  Each round is one
-    ``ops.class_round``: every edge's subset transition in both
-    directions, the corridor mask and the meet, one launch on a card.
-    The meet before the first round is the same call with both
-    directions off.  One host sync a call reads its flags and done words;
-    returns ``(done, rounds, syncs, operand_bytes)``, ``done`` a numpy
-    bool [Q], ``operand_bytes`` the lists' bytes each round was given in
+                      max_m: int, max_rounds: Sequence[int], width: int):
+    """Matmul-backend bidirectional fixpoint of a lockstep group of
+    ``len(max_rounds)`` chunks on one (sub)graph's per-row edge lists (the
+    forward frontier reads the edges into each row), with the transition
+    operands ``[L, Q]`` of every label.  The chunks lie side by side on
+    the column axis (``_group_columns``): ``su``/``sv`` and the other
+    operands span the group's ``Q`` columns; only each chunk's own columns
+    are seeded, so the rest carry no bits.  Each round is one
+    ``ops.class_round`` for the whole group: every edge's subset
+    transition in both directions, the corridor mask and the meet, one
+    launch on a card, which reads the last round's per-pass flags on the
+    device.  The meet before the first round is the same call with both
+    directions off.  One host sync a call reads the flags and done words,
+    and each chunk stops on its own rule, as if it ran alone: (forward or
+    backward added a bit) and not every column done and below its own
+    ``max_rounds``; a chunk stopped at that cap has its passes' flags
+    cleared, so it is frozen.  Returns ``(done, rounds, syncs,
+    operand_bytes)``: ``done`` numpy bool ``[n, width]``, ``rounds`` each
+    chunk's, ``operand_bytes`` the lists' bytes each launch was given in
     its active directions."""
-    q_n = su.shape[0]
+    q_n = cor_w.shape[1]
     v_p = cor_w.shape[0]
+    dev = su.device
+    cols = _group_columns(len(max_rounds), width)
+    passes = cols[:, ::bitset.WORD] // bitset.WORD         # [n, passes]
+    n_pass = bitset.n_words(q_n)
     allow, has, sh = _edge_state_masks(
-        torch.arange(lists_rev.n_labels, device=su.device), req_labels,
+        torch.arange(lists_rev.n_labels, device=dev), req_labels,
         forb_raw_w, n_states, max_m)
     sup_need = _sup_need(full_mask, n_states)
     syncs = spans.Syncs()
 
     def read(state):
         words = np.asarray(syncs.read(state), dtype=np.int32)
-        done = np.unpackbits(words[2:].view(np.uint8), bitorder="little")
-        return words[0] != 0, words[1] != 0, done[:q_n].astype(bool)
+        done = np.unpackbits(words[2].view(np.uint8), bitorder="little")
+        added = (words[:2, passes] != 0).any(axis=2)           # [2, n]
+        return added[0], added[1], done[cols].astype(bool)
 
-    f, b = _seed(su, v_p, q_n), _seed(sv, v_p, q_n)
-    none_done = torch.zeros(bitset.n_words(q_n), dtype=torch.int32,
-                            device=su.device)
+    cols_t = torch.from_numpy(cols.reshape(-1)).to(dev)
+    f, b = (_seed(e[cols_t], v_p, q_n, cols=cols_t) for e in (su, sv))
+    start = torch.tensor([[1] * n_pass, [1] * n_pass, [0] * n_pass],
+                         dtype=torch.int32, device=dev)
     _, _, state = ops.class_round(lists_rev, lists_fwd, allow, has, sh,
-                                  sup_need, cor_w, f, b, none_done, False,
-                                  False)
+                                  sup_need, cor_w, f, b, start, False, False)
     _, _, done = read(state)
+    cap = np.asarray(max_rounds)
+    rounds = np.zeros(len(cap), dtype=np.int64)
+    on = ~done.all(axis=1) & (rounds < cap)
     cf = cb = True
-    rounds = nbytes = 0
-    while (cf or cb) and not done.all() and rounds < max_rounds:
+    nbytes = 0
+    while on.any():
         f, b, state = ops.class_round(lists_rev, lists_fwd, allow, has, sh,
-                                      sup_need, cor_w, f, b, state[2:], cf,
-                                      cb)
+                                      sup_need, cor_w, f, b, state, cf, cb)
         nbytes += cf * lists_rev.nbytes + cb * lists_fwd.nbytes
-        cf, cb, done = read(state)
-        rounds += 1
-    return done, rounds, syncs, nbytes
+        added_f, added_b, now = read(state)
+        rounds += on
+        done = np.where(on[:, None], now, done)
+        live = (added_f | added_b) & ~done.all(axis=1)
+        stop_cap = on & live & (rounds >= cap)
+        on &= live & (rounds < cap)
+        if on.any():
+            for k in np.flatnonzero(stop_cap):
+                state[:2, passes[k, 0]:passes[k, -1] + 1] = 0
+        cf, cb = bool(added_f[on].any()), bool(added_b[on].any())
+    return done, rounds.tolist(), syncs, nbytes
 
 
 # -------------------------------------------- legacy one-directional executor
@@ -676,10 +720,11 @@ class PlanDevice(NamedTuple):
                    bitset.np_to_words(plan.forb_raw_w, device),
                    torch.from_numpy(plan.full_mask).to(device))
 
-    def rows(self, jobs: np.ndarray, m_eff: int):
-        """``(req_labels, forb_raw_w, full_mask)`` of ``jobs``, the
-        required labels cut to ``m_eff`` columns."""
-        j = _to_long(jobs, self.u.device)
+    def rows(self, jobs: np.ndarray | torch.Tensor, m_eff: int):
+        """``(req_labels, forb_raw_w, full_mask)`` of ``jobs`` (numpy, or
+        already on the device), the required labels cut to ``m_eff``
+        columns."""
+        j = jobs if torch.is_tensor(jobs) else _to_long(jobs, self.u.device)
         return (self.req_labels[j][:, :m_eff], self.forb_raw_w[j],
                 self.full_mask[j])
 
@@ -729,6 +774,7 @@ class ChunkResult:
     syncs: spans.Syncs = dataclasses.field(default_factory=spans.Syncs)
     fused_rounds: int = 0   # rounds run by the class_round kernel
     operand_bytes: int = 0  # class lists those rounds were given
+    grouped: bool = False   # shared its launches with another chunk
 
 
 def _to_long(a: np.ndarray, device) -> torch.Tensor:
@@ -810,6 +856,9 @@ class ExactExecutor:
     # cap on the padded-incidence gather transient (bytes); beyond it the
     # round falls back to packed segment reductions (extreme hub skew)
     GATHER_BYTES_CAP = 1 << 28
+    # cap on a lockstep group's [V', Q] frontier (bytes): 2,048 columns,
+    # 64 chunks of 32, at V' = 32,768; past it the next group starts
+    GROUP_BYTES_CAP = 1 << 28
 
     def __init__(self, index: TDRIndex, eng: "engine_mod.Engine"):
         self._index = weakref.ref(index)
@@ -896,8 +945,10 @@ class ExactExecutor:
                   mode: str, pin_m: int | None = None) -> ChunkResult:
         """Expand one padded chunk of pending jobs.  ``mode == "legacy"``
         -> the one-directional full-graph executor; ``member is None`` ->
-        full-graph bidirectional expansion (corridor built on the device);
-        else corridor compaction over the member rows."""
+        full-graph bidirectional expansion on the segment core (corridor
+        built on the device; on matmul ``run_full_chunks`` runs those);
+        else corridor compaction over the member rows, on the matmul core
+        as a lockstep group of one where the backend is matmul."""
         idx, eng = self.index, self.engine
         if mode == "legacy":
             reached, rounds, syncs = self._run_legacy(plan, pd, jobs, special)
@@ -926,16 +977,15 @@ class ExactExecutor:
         max_rounds = sub.v_p * n_states + 1
 
         lists = None
-        if eng.backend == "matmul":
-            lists = _edge_lists(
-                eng, special, sub.v_p,
-                (sub.src, sub.dst, sub.lab) if compacted else None)
+        if eng.backend == "matmul" and compacted:
+            lists = _edge_lists(eng, special, sub.v_p,
+                                (sub.src, sub.dst, sub.lab))
         if lists is not None:
-            reached, rounds, syncs, nbytes = _bidi_matmul_core(
+            reached, (rounds,), syncs, nbytes = _bidi_matmul_core(
                 su, sv, *lists, req_labels, forb_raw_w, full_mask, cor_w,
-                n_states, m_eff, max_rounds)
-            return ChunkResult(reached, rounds, sub.n_sub, compacted, syncs,
-                               rounds if su.is_cuda else 0, nbytes)
+                n_states, m_eff, [max_rounds], q_n)
+            return ChunkResult(reached[0], rounds, sub.n_sub, compacted,
+                               syncs, rounds if su.is_cuda else 0, nbytes)
 
         reached, rounds, syncs = _bidi_segment_core(
             su, sv, req_labels, forb_raw_w, full_mask, cor_w,
@@ -943,6 +993,68 @@ class ExactExecutor:
             *self.incidence(sub, sub.src.shape[0], q_n), n_states, m_eff,
             max_rounds, eng.config.chunk_words)
         return ChunkResult(reached, rounds, sub.n_sub, compacted, syncs)
+
+    def run_full_chunks(self, plan: QueryPlan, pd: PlanDevice,
+                        chunks: list, special: tuple[int, ...],
+                        pin_m: int | None = None) -> list | None:
+        """Expand padded full-graph chunks (``run_chunk`` with ``member``
+        None) on the matmul backend as lockstep groups: side by side on
+        the column axis, each group's operands built once and each round
+        one ``class_round`` launch and one host read for all its chunks,
+        groups cut at ``GROUP_BYTES_CAP``.  Each chunk's ``ChunkResult``
+        equals its own run's; a group's syncs and operand bytes come with
+        its first chunk.  None when the chunks take the segment core (not
+        ``matmul``, or over the dense cap on the CPU)."""
+        eng = self.engine
+        if eng.backend != "matmul":
+            return None
+        v_p = self.full.v_p
+        lists = _edge_lists(eng, special, v_p)
+        if lists is None:
+            return None
+        width = len(chunks[0])
+        stride = bitset.n_words(width) * bitset.WORD
+        cap_cols = self.GROUP_BYTES_CAP // (4 * v_p)
+        per_group = max(1, (cap_cols - width) // stride + 1)
+        out = []
+        for g0 in range(0, len(chunks), per_group):
+            out += self._run_group(plan, pd, chunks[g0:g0 + per_group],
+                                   lists, pin_m)
+        return out
+
+    def _run_group(self, plan: QueryPlan, pd: PlanDevice, chunks: list,
+                   lists, pin_m: int | None) -> list:
+        """One lockstep group of full-graph chunks (``run_full_chunks``):
+        the column of each chunk's pass past its width repeats its first
+        job, which the seeds leave empty.  The group runs at its widest
+        subset-state count; a narrower chunk's states never reach the
+        extra ones, so its rounds are its own."""
+        idx = self.index
+        dev = idx.device
+        width = len(chunks[0])
+        states = [self.eff_states(plan, jobs, pin_m) for jobs in chunks]
+        m_eff = max(m for m, _ in states)
+        stride = bitset.n_words(width) * bitset.WORD
+        q_n = (len(chunks) - 1) * stride + width
+        col_jobs = _to_long(np.concatenate(
+            [_pad_first(jobs, stride) for jobs in chunks])[:q_n], dev)
+        req_labels, forb_raw_w, full_mask = pd.rows(col_jobs, m_eff)
+        su, sv = pd.u[col_jobs], pd.v[col_jobs]
+        step = 256
+        cor_w = torch.cat([_corridor_mask(su[c0:c0 + step], sv[c0:c0 + step],
+                                          idx.n_out, idx.n_in,
+                                          idx.vtx_packed)
+                           for c0 in range(0, q_n, step)], dim=1)
+        v_p = self.full.v_p
+        reached, rounds, syncs, nbytes = _bidi_matmul_core(
+            su, sv, *lists, req_labels, forb_raw_w, full_mask, cor_w,
+            1 << m_eff, m_eff, [v_p * n + 1 for _, n in states], width)
+        grouped = len(chunks) > 1
+        return [ChunkResult(reached[k], rounds[k], self.full.n_sub, False,
+                            syncs if k == 0 else spans.Syncs(),
+                            rounds[k] if su.is_cuda else 0,
+                            nbytes if k == 0 else 0, grouped)
+                for k in range(len(chunks))]
 
     def subgraph(self, active: np.ndarray | None, mode: str) -> Subgraph:
         """The graph a chunk with corridor ``active`` (bool [V]) runs on:
@@ -1198,35 +1310,46 @@ def answer_plan(index: TDRIndex, plan: QueryPlan,
             member = ex.corridor_members(pd, np.concatenate(mine))
 
         # per chunk: rounds, host syncs, |V'|, compacted, fused rounds,
-        # operand bytes as their low 31 bits and the rest (int32 words, as
-        # every payload that crosses ranks; zeros for another rank's); the
-        # seconds waited in the syncs are this process's own
-        parts = np.zeros((len(groups), 7), dtype=np.int32)
+        # operand bytes as their low 31 bits and the rest, grouped (int32
+        # words, as every payload that crosses ranks; zeros for another
+        # rank's); the seconds waited in the syncs are this process's own
+        parts = np.zeros((len(groups), 8), dtype=np.int32)
         wait_s = [0.0] * len(groups)
+        todo = [(i, jobs, real_n) for i, (_, jobs, real_n) in
+                enumerate(_chunks(pending, exact_chunk)) if runs[i]]
+        full = [(i, jobs) for i, jobs, _ in todo if not compact_flags[i]]
+        # this process's full-graph chunks on matmul run as lockstep groups
+        results = {}
+        if full and exact_mode != "legacy":
+            res = ex.run_full_chunks(plan_p, pd, [j for _, j in full],
+                                     special, pin_m)
+            results = dict(zip((i for i, _ in full), res or ()))
         off = 0     # this process's next row of ``member``
-        for i, (_, jobs, real_n) in enumerate(_chunks(pending, exact_chunk)):
-            if not runs[i]:
-                continue
-            rows = None
-            if compact_flags[i]:
-                rows = _pad_first(member[off:off + real_n], exact_chunk)
-                off += real_n
-            res = ex.run_chunk(plan_p, pd, jobs, rows, special, exact_mode,
-                               pin_m)
+        for i, jobs, real_n in todo:
+            res = results.get(i)
+            if res is None:
+                rows = None
+                if compact_flags[i]:
+                    rows = _pad_first(member[off:off + real_n], exact_chunk)
+                    off += real_n
+                res = ex.run_chunk(plan_p, pd, jobs, rows, special,
+                                   exact_mode, pin_m)
             reached = np.asarray(res.reached.cpu() if torch.is_tensor(
                 res.reached) else res.reached)[:real_n]
             np.logical_or.at(answers, plan_p.qid[jobs[:real_n][reached]],
                              True)
             parts[i] = (res.rounds, res.syncs.n, res.n_active,
                         res.compacted, res.fused_rounds,
-                        res.operand_bytes & _LOW31, res.operand_bytes >> 31)
+                        res.operand_bytes & _LOW31, res.operand_bytes >> 31,
+                        res.grouped)
             wait_s[i] = res.syncs.wait_s
         if mesh is not None:
             answers, parts = _combine_ranks(answers, parts, owners, mesh)
-        for (rounds, syncs, n_active, compacted, fused, lo, hi), w in zip(
-                parts.tolist(), wait_s):
+        for (rounds, syncs, n_active, compacted, fused, lo, hi, grouped), \
+                w in zip(parts.tolist(), wait_s):
             stats.add_chunk(rounds, syncs, w, n_active, v_n,
-                            bool(compacted), fused, lo + (hi << 31))
+                            bool(compacted), fused, lo + (hi << 31),
+                            bool(grouped))
     return answers
 
 

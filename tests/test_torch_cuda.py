@@ -197,12 +197,36 @@ def test_block_sparse_live_list_kernel(cuda, br, bw, w, frontier):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(rounds.CASES))
+@pytest.mark.parametrize("name", list(rounds.CASES) + list(rounds.GROUPS))
 def test_class_round_kernel_matches_plain(cuda, name):
     """One phase-2 round through the ``class_round`` kernel on the edge
     lists equals its plain version on the same card inputs and the dense
     composition on the label-class stacks packed from the same edges: the
-    new frontiers, both changed flags and the done words, bit for bit."""
+    new frontiers, each pass's two flags and the done words, bit for bit.
+    A lockstep group's launch equals, on each chunk's columns and passes,
+    the chunk launched alone (and its plain version), and leaves the
+    columns between its chunks empty."""
+    if name in rounds.GROUPS:
+        group, cf, cb, chunks = rounds.group_case(name, cuda)
+        n0 = ops.KERNEL_LAUNCHES["class_round"]
+        got = ops.class_round(**group, cf=cf, cb=cb)
+        assert ops.KERNEL_LAUNCHES["class_round"] == n0 + 1
+        want = ref.class_round_ref(**group, cf=cf, cb=cb)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        seen = np.zeros(got[0].shape[1], bool)
+        for c, cols, passes in chunks:
+            alone = ops.class_round(**c, cf=cf, cb=cb)
+            cols_t = torch.from_numpy(cols).to(cuda)
+            for g, a, what in zip(
+                    (got[0][:, cols_t], got[1][:, cols_t],
+                     got[2][:, torch.from_numpy(passes).to(cuda)]), alone,
+                    ("f_next", "b_next", "state")):
+                assert torch.equal(g, a), what
+            seen[cols] = True
+        rest = torch.from_numpy(~seen).to(cuda)
+        assert not got[0][:, rest].any() and not got[1][:, rest].any()
+        return
     c, cf, cb, _, dense_ops = rounds.round_case(name, cuda)
     n0 = ops.KERNEL_LAUNCHES["class_round"]
     got = ops.class_round(**c, cf=cf, cb=cb)
@@ -259,6 +283,51 @@ def test_main_path_on_card_matches_segment_and_oracle(cuda, kind, width):
     for name in ("bitset_matmul", "way_filter", "block_sparse_matmul",
                  "class_round"):
         assert ops.KERNEL_LAUNCHES[name] > 0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["auto", "full"])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_grouped_chunks_on_card_match_the_cpu(cuda, mode, chunk,
+                                              monkeypatch):
+    """A batch's full-graph chunks (at least 3) run on the card as one
+    lockstep group: answers equal the DFS oracle and the matmul backend
+    on the CPU, every chunk's rounds (``_round_parts``) the CPU's, and
+    ``class_round`` launches once a round of each group's longest chunk
+    and once before it (a compacted chunk is a group of one)."""
+    g = G.random_graph("er", 300, 3.0, 6, seed=4)
+    cfg = tdr_build.TDRConfig(vtx_bits=64)
+    idx = tdr_build.build_index(g, cfg)
+    host = tdr_build.build_index(g, cfg, backend="matmul", device="cpu")
+    rng = np.random.default_rng(4)
+    fams = (pattern.all_of, pattern.any_of, pattern.none_of)
+    qs = [(int(rng.integers(300)), int(rng.integers(300)),
+           fams[int(rng.integers(3))](rng.choice(6, 2, replace=False)
+                                      .tolist())) for _ in range(192)]
+    want = [dfs_baseline.answer_pcr(g, u, v, p) for u, v, p in qs]
+    groups, real = [], tdr_query._bidi_matmul_core
+
+    def spy(*args):
+        out = real(*args)
+        groups.append(out[1])
+        return out
+
+    monkeypatch.setattr(tdr_query, "_bidi_matmul_core", spy)
+    st, st_h = tdr_query.QueryStats(), tdr_query.QueryStats()
+    n0 = ops.KERNEL_LAUNCHES["class_round"]
+    got = tdr_query.answer_batch(idx, qs, exact_mode=mode,
+                                 exact_chunk=chunk, stats=st)
+    launched = ops.KERNEL_LAUNCHES["class_round"] - n0
+    on_card = list(groups)
+    got_h = tdr_query.answer_batch(host, qs, exact_mode=mode,
+                                   exact_chunk=chunk, backend="matmul",
+                                   stats=st_h, device="cpu")
+    assert got.tolist() == got_h.tolist() == want
+    assert st._round_parts == st_h._round_parts
+    assert st.full_chunks >= 3 and st.grouped_chunks == st.full_chunks
+    assert launched == st.host_syncs == st_h.host_syncs == sum(
+        max(rs) + 1 for rs in on_card)
+    assert st.fused_rounds == st.exact_rounds
 
 
 @pytest.mark.gpu

@@ -335,21 +335,20 @@ def test_block_sparse_lane_plain_matches_reference(op, shape):
                                          interpret=True)))
 
 
-@pytest.mark.parametrize("name", rounds.SMALL)
-def test_class_round_plain_matches_direct_composition(name, one_thread):
-    """``ops.class_round`` on the CPU (``ref.class_round_ref`` on the
-    edge lists with every label's operands) equals the round written out
-    on the dense label-class stacks packed from the same edges: one
+def _direct_round(c, cf, cb, full_mask, dense):
+    """The round of ``round_case``'s operands ``c`` written out on the
+    dense label-class stacks packed from the same edges: one
     ``bitset_matmul_ref`` per class and direction, each class's subset
-    transition (the neutral class's ``has = ~0, sh = 0`` too), the
-    corridor and live-column mask, the new bits, and a meet searched over
-    every state pair against the queries' full masks."""
-    c, cf, cb, full_mask, dense = rounds.round_case(name, "cpu")
+    transition (the neutral class's ``has = ~0, sh = 0`` too), on the
+    passes whose flag and gate run the direction, the corridor and
+    live-column mask, the new bits, and a meet searched over every state
+    pair against the queries' full masks -> ``(f_next, b_next, new_f,
+    new_b, done)``."""
     adj_rev, adj_fwd = dense["adj_rev"], dense["adj_fwd"]
-    f, b, cor = c["f"], c["b"], c["cor_w"]
+    f, b, cor, state = c["f"], c["b"], c["cor_w"], c["state"]
     v_p, q = f.shape
     n_states = c["sup_need"].shape[0]
-    done = bitset.unpack_bits(c["done_w"], q)
+    done = bitset.unpack_bits(state[2], q)
     mask = cor & torch.where(done, 0, -1).to(torch.int32)[None, :]
 
     def push(adj, x):
@@ -361,8 +360,8 @@ def test_class_round_plain_matches_direct_composition(name, one_thread):
             upd |= (t & h) | ((t & ~h) << sh)
         return upd
 
-    new_f = push(adj_rev, f) & mask & ~f if cf else torch.zeros_like(f)
-    new_b = push(adj_fwd, b) & mask & ~b if cb else torch.zeros_like(b)
+    new_f = push(adj_rev, f) & mask & ~f & rounds.run_mask(state[0], q, cf)
+    new_b = push(adj_fwd, b) & mask & ~b & rounds.run_mask(state[1], q, cb)
     want_f, want_b = f | new_f, b | new_b
     shifts = np.arange(n_states, dtype=np.uint32)
     bf = (bitset.words_to_np(want_f)[..., None] >> shifts) & 1   # [V, Q, S]
@@ -373,15 +372,49 @@ def test_class_round_plain_matches_direct_composition(name, one_thread):
     fills = ((st[:, None] | st[None, :])[None] & full_mask[:, None, None]) \
         == full_mask[:, None, None]
     want_done = done.numpy() | (pairs & fills).any(axis=(1, 2))
+    return want_f, want_b, new_f, new_b, want_done
+
+
+@pytest.mark.parametrize("name", rounds.SMALL + rounds.SMALL_GROUPS)
+def test_class_round_plain_matches_direct_composition(name, one_thread):
+    """``ops.class_round`` on the CPU (``ref.class_round_ref`` on the
+    edge lists with every label's operands) equals the round written out
+    on the dense label-class stacks packed from the same edges
+    (``_direct_round``), with the per-pass state: each direction's
+    "added" flag (a gated-off one keeps the flag it was given) and the
+    done words.  A lockstep group (``rounds.GROUPS``) equals, on each
+    chunk's columns and passes, the chunk launched alone, and leaves the
+    columns between its chunks empty."""
+    if name in rounds.GROUPS:
+        group, cf, cb, chunks = rounds.group_case(name, "cpu")
+        got_f, got_b, state = ops.class_round(**group, cf=cf, cb=cb)
+        seen = np.zeros(got_f.shape[1], bool)
+        for c, cols, passes in chunks:
+            alone = ops.class_round(**c, cf=cf, cb=cb)
+            for g_, a_ in zip((got_f[:, cols], got_b[:, cols],
+                               state[:, passes]), alone):
+                assert torch.equal(g_, a_)
+            seen[cols] = True
+        assert not got_f[:, ~seen].any() and not got_b[:, ~seen].any()
+        assert not bitset.unpack_bits(state[2], len(seen))[~seen].any()
+        assert state[:2].any() or not (cf or cb)
+        return
+    c, cf, cb, full_mask, dense = rounds.round_case(name, "cpu")
+    q = c["f"].shape[1]
+    want_f, want_b, new_f, new_b, want_done = _direct_round(
+        c, cf, cb, full_mask, dense)
 
     n0 = ops.KERNEL_LAUNCHES["class_round"]
     got_f, got_b, state = ops.class_round(**c, cf=cf, cb=cb)
     assert ops.KERNEL_LAUNCHES["class_round"] == n0   # counted on a card
     assert torch.equal(got_f, want_f) and torch.equal(got_b, want_b)
     words = bitset.words_to_np(state)
-    assert words[:2].tolist() == [int(bool((new_f != 0).any())),
-                                  int(bool((new_b != 0).any()))]
-    np.testing.assert_array_equal(words[2:], bitset.pack_bits_np(want_done))
+    assert words.shape == (3, bitset.n_words(q))
+    for row, new, gate in ((0, new_f, cf), (1, new_b, cb)):
+        per_pass = [int(bool((new[:, p * 32:(p + 1) * 32] != 0).any()))
+                    if gate else 1 for p in range(words.shape[1])]
+        assert words[row].tolist() == per_pass
+    np.testing.assert_array_equal(words[2], bitset.pack_bits_np(want_done))
     assert 0 < int(want_done.sum()) < q or name in ("neutral-only",
                                                     "meet-only")
     # the dense composition through ``ref.class_push_ref``
@@ -417,8 +450,8 @@ def test_class_lists_hold_the_stacks_edges(name, one_thread):
 
 
 @pytest.mark.parametrize("bad", ["lists", "frontier", "classes", "states",
-                                 "done", "row_ptr", "n_labels", "column",
-                                 "label"])
+                                 "done", "flat_state", "row_ptr", "n_labels",
+                                 "column", "label"])
 def test_class_round_rejects_bad_operands(bad):
     """The card wrapper's shape check refuses what the kernel cannot take;
     an edge whose column is not below ``V'`` or whose label is not below
@@ -440,8 +473,10 @@ def test_class_round_rejects_bad_operands(bad):
         c["sh"] = c["sh"][:-1]
     elif bad == "states":
         c["sup_need"] = torch.zeros((33, 32), dtype=torch.int32)
-    elif bad == "done":
-        c["done_w"] = torch.zeros(2, dtype=torch.int32)
+    elif bad == "done":          # passes for 64 columns, not 32
+        c["state"] = torch.zeros((3, 2), dtype=torch.int32)
+    elif bad == "flat_state":    # flags and done words in one flat row
+        c["state"] = torch.zeros(3, dtype=torch.int32)
     elif bad == "row_ptr":
         c["lists_rev"] = c["lists_rev"]._replace(
             row_ptr=c["lists_rev"].row_ptr[:-1])

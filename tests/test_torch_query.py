@@ -311,6 +311,47 @@ def test_boolean_batch_on_matmul_reads_lists_not_stacks(mode):
 
 
 @pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("mode", ["auto", "full"])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_grouped_full_chunks_keep_each_chunks_rounds(mode, chunk,
+                                                     monkeypatch):
+    """On ``matmul`` a batch's full-graph chunks run as one lockstep group
+    (one ``class_round`` call and one host read a round for all of them):
+    every chunk's rounds (``_round_parts``) equal the segment backend's,
+    chunk by chunk, the answers equal the DFS oracle's, and the calls
+    are the group's longest chunk's rounds + 1 (a compacted chunk's own
+    rounds + 1)."""
+    g = G.random_graph("er", 64, 2.3, 4, seed=6)
+    idx = tdr_build.build_index(g, tdr_build.TDRConfig(**CFG), device="cpu")
+    specs = _specs(np.random.default_rng(6), 64, 4, 96)
+    pq = _patterns(pattern, specs, 4)
+    want = [dfs_baseline.answer_pcr(g, u, v, p) for u, v, p in pq]
+    st_s = tdr_query.QueryStats()
+    seg = tdr_query.answer_batch(idx, pq, backend="segment", stats=st_s,
+                                 exact_mode=mode, exact_chunk=chunk,
+                                 device="cpu")
+    real, calls = ops.class_round, []
+
+    def spy(*args):
+        calls.append(args[-2:])
+        return real(*args)
+
+    monkeypatch.setattr(ops, "class_round", spy)
+    st = tdr_query.QueryStats()
+    got = tdr_query.answer_batch(idx, pq, backend="matmul", stats=st,
+                                 exact_mode=mode, exact_chunk=chunk,
+                                 device="cpu")
+    assert seg.tolist() == got.tolist() == want
+    assert st._round_parts == st_s._round_parts
+    assert (st.full_chunks, st.compacted_chunks) == (st_s.full_chunks,
+                                                     st_s.compacted_chunks)
+    assert st.full_chunks >= 2 and st.grouped_chunks == st.full_chunks
+    assert st_s.grouped_chunks == 0
+    assert len(calls) == st.host_syncs < st_s.host_syncs
+    assert calls.count((False, False)) == st.compacted_chunks + 1
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_operand_bytes_count_each_active_direction(monkeypatch):
     """``QueryStats.operand_bytes`` adds, for each ``class_round`` launch
     of a round, the bytes of the lists of each direction it runs: rounds

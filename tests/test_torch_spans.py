@@ -156,17 +156,39 @@ def test_syncs_count_each_read_and_its_wait():
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("mode", ["auto", "full", "legacy"])
-def test_phase2_syncs_cover_every_round(backend, mode):
+def test_phase2_syncs_cover_every_round(backend, mode, monkeypatch):
+    """One host read per round and one before the first: per chunk on
+    segment and in legacy mode; on matmul per lockstep group (the
+    full-graph chunks side by side; a compacted chunk alone), whose
+    rounds are its longest chunk's."""
     g = _graph()
     idx = tdr_build.build_index(g, CFG, device="cpu")
+    groups, real = [], tdr_query._bidi_matmul_core
+
+    def spy(*args):
+        out = real(*args)
+        groups.append(out[1])        # each chunk's rounds in the launch
+        return out
+
+    monkeypatch.setattr(tdr_query, "_bidi_matmul_core", spy)
     st = tdr_query.QueryStats()
     tdr_query.answer_batch(idx, _queries(g), backend=backend,
                            exact_mode=mode, exact_chunk=8, stats=st,
                            device="cpu")
     assert st.exact_rounds > 0
-    # one read per round and one before the first, per chunk
     n_chunks = st.compacted_chunks + st.full_chunks
-    assert st.host_syncs == st.exact_rounds + n_chunks
+    if backend == "segment" or mode == "legacy":
+        assert groups == []
+        assert st.host_syncs == st.exact_rounds + n_chunks
+    else:
+        assert sorted(r for rs in groups for r in rs) == sorted(
+            st._round_parts)
+        assert st.host_syncs == sum(max(rs) + 1 for rs in groups)
+        assert st.grouped_chunks == (st.full_chunks
+                                     if st.full_chunks > 1 else 0)
+    if backend == "matmul" and mode == "full":
+        assert len(groups) == 1 and st.grouped_chunks == n_chunks > 1
+        assert st.host_syncs == max(st._round_parts) + 1
     assert 0 <= st.sync_wait_s <= st.phase2_s
     assert st.phase1_s > 0
 
